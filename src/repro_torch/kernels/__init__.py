@@ -1,0 +1,3 @@
+"""The port's kernels: hand-written CUDA C++ (``csrc/``), built at first use
+by ``build.py``, wrapped in ``predict.py``, dispatched by ``ops.py``, each
+beside its plain PyTorch version in ``ref.py``."""
