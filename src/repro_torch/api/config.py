@@ -1,7 +1,8 @@
 """Frozen session configs — copied from ``repro.api.config``.
 
-:class:`FitConfig` describes the training run that produced an artifact
-(read from its ``artifact.json``); :class:`ServeConfig` fully determines
+:class:`FitConfig` is the training recipe of ``api.fit`` (and is read back
+from an artifact's ``artifact.json``); :class:`RefitConfig` the recipe of
+one in-situ ``api.refit`` step; :class:`ServeConfig` fully determines
 how a loaded artifact answers queries (``api.Server``). Both round-trip
 through the same JSON as the JAX package's, lane names included, so one
 session file configures both packages. Only
@@ -216,4 +217,58 @@ class ServeConfig:
 
     @classmethod
     def from_json(cls, s: str) -> "ServeConfig":
+        return cls.from_dict(json.loads(s))
+
+
+_INITS = ("warm", "scratch")
+
+
+@dataclasses.dataclass(frozen=True)
+class RefitConfig:
+    """How ``api.refit`` updates a fitted surface for a new simulation step.
+
+    The in-situ loop refits the SAME FitConfig recipe against each new time
+    slice, with the previous step's parameters as the initializer and a
+    much shorter SGD budget.
+
+    Fields:
+      train_iters: the refit SGD budget (iterations for THIS step).
+      init: "warm" starts from the previous step's params (and Adam
+        moments); "scratch" re-initializes from the FitConfig's seed
+        exactly like ``api.fit`` — with ``train_iters`` equal to the
+        FitConfig's full budget, the scratch path is bitwise-identical to
+        ``fit()``.
+      reset_optimizer: warm-start the params but zero the Adam moments.
+        Artifacts loaded from disk carry no moments, so refitting a LOADED
+        artifact always re-initializes the optimizer.
+      learning_rate: override the FitConfig learning rate for this refit
+        only (None keeps it).
+    """
+
+    train_iters: int = 50
+    init: str = "warm"
+    reset_optimizer: bool = False
+    learning_rate: float | None = None
+
+    def __post_init__(self) -> None:
+        _check(int(self.train_iters) >= 0, f"train_iters must be >= 0, got {self.train_iters}")
+        _check(self.init in _INITS, f"init must be one of {_INITS}, got {self.init!r}")
+        if self.learning_rate is not None:
+            _check(
+                float(self.learning_rate) > 0,
+                f"learning_rate must be > 0, got {self.learning_rate}",
+            )
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RefitConfig":
+        return _from_dict(cls, d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "RefitConfig":
         return cls.from_dict(json.loads(s))

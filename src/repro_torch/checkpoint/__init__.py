@@ -1,3 +1,9 @@
-from repro_torch.checkpoint.checkpoint import ARRAYS_FILE, load_arrays
+from repro_torch.checkpoint.checkpoint import (
+    ARRAYS_FILE,
+    MANIFEST_FILE,
+    load_arrays,
+    packb,
+    save_pytree,
+)
 
-__all__ = ["ARRAYS_FILE", "load_arrays"]
+__all__ = ["ARRAYS_FILE", "MANIFEST_FILE", "load_arrays", "packb", "save_pytree"]

@@ -1,14 +1,15 @@
 """Spatial grid partitioner — the paper's N_part contiguous data partitions.
 
-Numpy copy of the grid half of ``repro.core.partition`` (the port must
-not import the JAX package). ``partition_data`` comes with the training
-slice. Everything here is host-side.
+Port of ``repro.core.partition`` (the port must not import the JAX
+package). The grid is host-side numpy; ``partition_data`` bins on the host
+and puts the padded storage on an explicit device.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class PartitionGrid(NamedTuple):
@@ -30,6 +31,28 @@ class PartitionGrid(NamedTuple):
 
     def index_of(self, ix: int, iy: int) -> int:
         return iy * self.gx + ix
+
+
+class PartitionedData(NamedTuple):
+    """Padded, rectangular per-partition storage (rows of one cell contiguous).
+
+    x: (P, n_max, d) float32; y, mask: (P, n_max) float32 (mask 1 on true
+    rows); counts: (P,) int32 true n_k; all on one device. grid: host-side.
+    """
+
+    x: torch.Tensor
+    y: torch.Tensor
+    mask: torch.Tensor
+    counts: torch.Tensor
+    grid: PartitionGrid
+
+    @property
+    def num_partitions(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def n_max(self) -> int:
+        return self.x.shape[1]
 
 
 def make_grid(
@@ -74,6 +97,58 @@ def cell_indices(grid: PartitionGrid, x: np.ndarray) -> tuple[np.ndarray, np.nda
     ix = np.clip(np.searchsorted(grid.x_edges, x[:, 0], side="right") - 1, 0, grid.gx - 1)
     iy = np.clip(np.searchsorted(grid.y_edges, x[:, 1], side="right") - 1, 0, grid.gy - 1)
     return ix.astype(np.int64), iy.astype(np.int64)
+
+
+def partition_data(
+    x: np.ndarray,
+    y: np.ndarray,
+    grid: PartitionGrid,
+    n_max: int | None = None,
+    pad_multiple: int = 8,
+    *,
+    device: torch.device | str = "cpu",
+) -> PartitionedData:
+    """Assign each observation to its grid cell and pad to rectangular storage.
+
+    The JAX package's rule exactly: a cell keeps its points in data order,
+    n_max rounds up to a multiple of ``pad_multiple`` (an explicit ``n_max``
+    truncates), padded slots replicate the cell's first point with mask 0
+    (so covariance matrices stay well-conditioned), and empty cells keep
+    zeros.
+    """
+    x = np.asarray(x, np.float32)
+    y = np.asarray(y, np.float32)
+    n, d = x.shape
+    ix, iy = cell_indices(grid, x)
+    part = iy * grid.gx + ix
+    P = grid.num_partitions
+    p_count = np.bincount(part, minlength=P)
+    nm = int(p_count.max()) if n_max is None else n_max
+    nm = ((nm + pad_multiple - 1) // pad_multiple) * pad_multiple
+
+    order = np.argsort(part, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(p_count)[:-1]])
+    rank = np.arange(n) - starts[part[order]]  # position of each point in its cell
+    keep = rank < nm
+    src, cell, slot = order[keep], part[order][keep], rank[keep]
+    fill = np.minimum(p_count, nm)
+    # padded slots replicate the cell's first point; empty cells stay zero
+    first = np.zeros((P, d), np.float32)
+    first[cell[slot == 0]] = x[src[slot == 0]]
+    xp = np.broadcast_to(first[:, None, :], (P, nm, d)).copy()
+    yp = np.zeros((P, nm), np.float32)
+    mp = np.zeros((P, nm), np.float32)
+    xp[cell, slot] = x[src]
+    yp[cell, slot] = y[src]
+    mp[cell, slot] = 1.0
+    dev = torch.device(device)
+    return PartitionedData(
+        x=torch.as_tensor(xp, device=dev),
+        y=torch.as_tensor(yp, device=dev),
+        mask=torch.as_tensor(mp, device=dev),
+        counts=torch.as_tensor(fill.astype(np.int32), device=dev),
+        grid=grid,
+    )
 
 
 def partition_centers(grid: PartitionGrid) -> np.ndarray:

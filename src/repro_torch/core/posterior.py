@@ -14,7 +14,8 @@ The JAX package writes each function for one model and ``vmap``s it over
 the P cells. Here the batch axes are written out: every leaf may carry
 leading axes (P for a stacked cache, N for one cache row per query), and
 the functions broadcast over them — ``build_cache_stacked`` is one
-batched ``torch.linalg.cholesky`` over (P, m, m).
+batched ``torch.linalg.cholesky`` over (P, m, m), and ``projection`` (the
+training ELBO's linear algebra) runs every cell's mini-batch at once.
 """
 from __future__ import annotations
 
@@ -58,12 +59,50 @@ def s_chol(s_tril: torch.Tensor) -> torch.Tensor:
     return torch.tril(s_tril, -1) + torch.diag_embed(diag)
 
 
-def kmm_chol(params: Any, cov_fn: Callable, jitter: float) -> torch.Tensor:
-    """chol(Kmm + jitter I) for an SVGPParams-like bundle, (..., m, m)."""
+def kmm_chol(params: Any, cov_fn: Callable, jitter: float, *, check: bool = True) -> torch.Tensor:
+    """chol(Kmm + jitter I) for an SVGPParams-like bundle, (..., m, m).
+
+    ``check=True`` raises on a matrix that is not positive definite, which
+    on CUDA costs a host synchronization per call (serving factorizes once).
+    ``check=False`` is the training path's form: ``cholesky_ex`` without a
+    host read, and a failed factor comes back as NaN, as the JAX package's
+    Cholesky does (so a bad step yields NaN and does not stall the loop).
+    """
     m = params.z.shape[-2]
     kmm = cov_fn(params.cov, params.z, params.z)
     eye = torch.eye(m, dtype=kmm.dtype, device=kmm.device)
-    return torch.linalg.cholesky(kmm + jitter * eye)
+    if check:
+        return torch.linalg.cholesky(kmm + jitter * eye)
+    lmm, info = torch.linalg.cholesky_ex(kmm + jitter * eye)
+    return torch.where((info == 0)[..., None, None], lmm, torch.nan)
+
+
+def projection(
+    params: Any, cov_fn: Callable, x: torch.Tensor, jitter: float, use_pallas: bool
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Shared O(B m^2) training hot path (the ELBO's eq. 3 projection),
+    batched over the leading axes of ``params`` and ``x`` (..., B, d).
+
+    Returns (lk, kdiag_res, lmm):
+      lk        (..., m, B): Lmm^{-1} K_mz^T   (a_i = Lmm^{-T} lk_i)
+      kdiag_res (..., B):    k~_ii = k_ii - ||lk_i||^2   (eq. 3's k~ term)
+      lmm       (..., m, m): chol(Kmm), non-syncing (``kmm_chol(check=False)``)
+    With ``use_pallas`` K(X, Z) and the projection run in the fused kernel
+    (one launch over every cell on CUDA, its plain version on CPU; RBF
+    only); otherwise plain PyTorch for every covariance.
+    """
+    lmm = kmm_chol(params, cov_fn, jitter, check=False)
+    if use_pallas:
+        kops.require_rbf(cov_fn)
+        _knm, lk_t, q_diag = kops.svgp_projection(
+            x, params.z, params.cov.log_lengthscale, params.cov.log_variance, lmm
+        )
+        lk = lk_t.mT
+    else:
+        knm = cov_fn(params.cov, x, params.z)  # (..., B, m)
+        lk = torch.linalg.solve_triangular(lmm, knm.mT, upper=False)
+        q_diag = torch.sum(lk * lk, dim=-2)
+    return lk, kdiag(params.cov, x) - q_diag, lmm
 
 
 def build_cache(
@@ -76,9 +115,7 @@ def build_cache(
     """Precompute the prediction factors — O(m^3) per model, once. Leaves
     with leading axes are factorized as one batch."""
     lmm = kmm_chol(params, cov_fn, jitter)
-    m = lmm.shape[-1]
-    eye = torch.eye(m, dtype=lmm.dtype, device=lmm.device).expand_as(lmm)
-    w = torch.linalg.solve_triangular(lmm, eye, upper=False)
+    w = kops.lower_inverse(lmm)
     sl = s_chol(params.s_tril)
     m_star = params.m_star[..., :, None]
     if whitened:
@@ -89,7 +126,10 @@ def build_cache(
         inner = torch.linalg.solve_triangular(lmm, m_star, upper=False)
         c = torch.linalg.solve_triangular(lmm.mT, inner, upper=True)[..., 0]
         u = sl.mT @ (w.mT @ w)  # Sl^T Kmm^{-1}
-    return PosteriorCache(z=params.z, w=w, u=u, c=c, cov=params.cov, log_beta=params.log_beta)
+    # row-major factors: the linear-algebra results may come back column-major
+    # (the CUDA kernels take contiguous leaves only)
+    return PosteriorCache(z=params.z, w=w.contiguous(), u=u.contiguous(), c=c.contiguous(),
+                          cov=params.cov, log_beta=params.log_beta)
 
 
 def build_cache_stacked(

@@ -34,6 +34,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     # hx, z, log_l, log_var, w, u, c, mean, fvar, P, S, Q, m, d, device, stream
     "psvgp_posterior_predict": [_P] * 9 + [_I] * 6 + [_P],
+    # x, z, log_l, log_var, w, knm, lk_t, q_diag, P, B, m, d, device, stream
+    "psvgp_svgp_projection": [_P] * 8 + [_I] * 5 + [_P],
+    # x, z, log_l, log_var, knm, P, B, m, d, device, stream
+    "psvgp_rbf_cross_cov": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

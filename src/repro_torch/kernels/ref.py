@@ -1,10 +1,13 @@
-"""Plain PyTorch versions of the prediction kernels (the allclose targets).
+"""Plain PyTorch versions of the kernels (the allclose targets).
 
 Port of ``repro.kernels.ref``, in the exact input convention of the CUDA
-kernels in ``csrc/predict.cu``: the CPU lanes run these, and
-``chip_smoke.py`` holds each kernel to them on the card. Leading batch
-axes broadcast (the JAX package's ``vmap`` written out), which is all the
-slot-stacked and cell-stacked variants below are.
+kernels in ``csrc/``: the CPU lanes run these, and ``chip_smoke.py`` holds
+each kernel to them on the card. Leading batch axes broadcast (the JAX
+package's ``vmap`` written out), which is all the slot-stacked and
+cell-stacked variants below are: with x (P, B, d) against P-stacked
+z (P, m, d), log_lengthscale (P, d), log_variance (P,) and w (P, m, m),
+``rbf_cross_cov`` and ``svgp_projection`` compute what ONE launch of the
+cell-axis kernel computes for every cell.
 """
 from __future__ import annotations
 
@@ -17,12 +20,34 @@ def rbf_cross_cov(
     """ARD-RBF K(X,Z): exp(lv) * exp(-0.5 sum_d (x_d - z_d)^2 / l_d^2).
 
     x: (..., n, d), z: (..., m, d), log_lengthscale (..., d),
-    log_variance (...) -> (..., n, m).
+    log_variance (...) -> (..., n, m); with a leading cell axis P this is
+    the cell-axis K(X, Z) of ``csrc/svgp_proj.cu``'s rbf entry.
     """
     inv_l = torch.exp(-log_lengthscale)[..., None, :]
     diff = (x * inv_l)[..., :, None, :] - (z * inv_l)[..., None, :, :]
     r2 = torch.sum(diff * diff, dim=-1)
     return torch.exp(log_variance)[..., None, None] * torch.exp(-0.5 * r2)
+
+
+def svgp_projection(
+    x: torch.Tensor,
+    z: torch.Tensor,
+    log_lengthscale: torch.Tensor,
+    log_variance: torch.Tensor,
+    w: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused SVGP projection (the ELBO's O(B m^2) hot path).
+
+    w: (..., m, m) = Lmm^{-1} (dense lower-triangular inverse of chol(Kmm)).
+    x (..., B, d) -> (knm (..., B, m), lk_t (..., B, m), q_diag (..., B)):
+      knm    K(X, Z)
+      lk_t   K(X, Z) @ W^T   (row i = (Lmm^{-1} k_i)^T)
+      q_diag ||Lmm^{-1} k_i||^2 = k_i^T Kmm^{-1} k_i
+    """
+    knm = rbf_cross_cov(x, z, log_lengthscale, log_variance)
+    lk_t = knm @ w.mT
+    q_diag = torch.sum(lk_t * lk_t, dim=-1)
+    return knm, lk_t, q_diag
 
 
 def posterior_predict(
@@ -112,7 +137,24 @@ def posterior_predict_scales(x, z, log_lengthscale, log_variance, w, u, c):
     return mean_scale, torch.sum(lk * lk, dim=-1) + torch.sum(su * su, dim=-1)
 
 
-def tolerance_ratio(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor) -> float:
-    """max over rows of |got - want| / (TOL * max(1, scale)); <= 1 agrees."""
+def svgp_projection_scales(x, z, log_lengthscale, log_variance, w):
+    """(knm_scale, lk_scale, q_scale) of :func:`svgp_projection`, in float64,
+    each broadcastable to its output: knm_scale = sigma^2 (..., 1, 1),
+    lk_scale = sum_j |k_j W_ij| (..., B, m), q_scale = q_diag (..., B).
+    Compare knm with ``floor=0`` (|d knm| <= TOL sigma^2), the other two
+    with the default floor of 1."""
+    x, z, log_lengthscale, log_variance, w = (
+        t.double() for t in (x, z, log_lengthscale, log_variance, w)
+    )
+    knm, _, q_diag = svgp_projection(x, z, log_lengthscale, log_variance, w)
+    lk_scale = torch.abs(knm) @ torch.abs(w).mT
+    return torch.exp(log_variance)[..., None, None], lk_scale, q_diag
+
+
+def tolerance_ratio(
+    got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor, floor: float = 1.0
+) -> float:
+    """max over entries of |got - want| / (TOL * max(floor, scale)); <= 1
+    agrees. ``scale`` broadcasts against ``got``."""
     err = torch.abs(got.double() - want.double())
-    return float(torch.max(err / (TOL * torch.clamp_min(scale.double(), 1.0))))
+    return float(torch.max(err / (TOL * torch.clamp_min(scale.double(), floor))))

@@ -149,11 +149,12 @@ def test_wrappers_take_cuda_tensors_only_and_count_nothing_on_refusal():
 
 
 def test_build_is_lazy_and_keyed_by_source_content(tmp_path, monkeypatch):
-    assert [p.name for p in build.sources()] == ["predict.cu"]
+    assert [p.name for p in build.sources()] == ["predict.cu", "svgp_proj.cu"]
     assert build._lib is None  # importing the package built nothing
     h = build.source_hash()
     assert h == build.source_hash() and len(h) == 16
-    (tmp_path / "predict.cu").write_text((build.CSRC / "predict.cu").read_text())
+    for src in build.sources():
+        (tmp_path / src.name).write_text(src.read_text())
     monkeypatch.setattr(build, "CSRC", tmp_path)
     assert build.source_hash() == h
     (tmp_path / "predict.cu").write_text("// changed\n")
