@@ -6,12 +6,15 @@
 Phases, each printed as it runs; any failure exits non-zero:
 
   1. card     the card's name and power limit (nvidia-smi); TF32 off.
-  2. build    nvcc builds the kernels from src/repro_torch/kernels/csrc/.
+  2. build    nvcc builds the kernels from src/repro_torch/kernels/csrc/
+              (one nvcc per source, in parallel) and reports the registers
+              and spills of every template instance.
   3. kernels  each CUDA kernel against its plain PyTorch version on the
               card. Prediction: at the serving path's shape (the paper's
               400-cell artifact, 9 halo slots, q_max 32, m 5) and at
               ragged/odd shapes (m in {1, 10, 17, 64}, Q not a multiple of
-              128, d up to 4), plus row independence. Training: the
+              128, d up to 4) and one cell's 65,536 rows, plus row
+              independence. Training: the
               ELBO projection and K(X, Z) at the training step's shape
               (400 cells x 32 rows, m 5, on the artifact's factors), at
               every m in {1, 10, 17, 64} x B in {1, 33, 200} (P = 1, d up
@@ -29,8 +32,10 @@ Phases, each printed as it runs; any failure exits non-zero:
               boundary RMSD inside the band of the JAX package's seeds,
               save -> load -> serve bitwise, a ppermute fit, a warm refit,
               refit(scratch) == fit bitwise.
-  6. times    every kernel, its plain version and its bound at its path's
-              shape and at a 65,536-row batch; p50/p95 latency and
+  6. times    the launch floor (a one-element add_ through the same CUDA
+              graph); every kernel, its plain version and its bound at its
+              path's shape and at a 65,536-row batch (the slots kernel also
+              at one cell's 65,536 rows); p50/p95 latency and
               points/s of a stream of 4,096-point requests, the host stages
               of a request; ms per training step and fit seconds; the
               device's busy share of a request and of a training step
@@ -54,6 +59,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -88,6 +94,28 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel<template args>: [registers, spill bytes]} of every instance
+    in nvcc's ``-Xptxas -v`` output (``build.build_log``)."""
+    out: dict = {}
+    name = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kernel = re.search(r"([a-z_]+_kernel)I(.*?)EEv", entry.group(1))
+            name = (f"{kernel.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', kernel.group(2) + 'E'))}>"
+                    if kernel else entry.group(1))
+            out[name] = [None, 0]
+        elif name is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                out[name][1] = int(spill.group(1)) + int(spill.group(2))
+            if regs:
+                out[name][0] = int(regs.group(1))
+    return out
 
 
 def predict_flops_per_row(m: int, d: int) -> int:
@@ -378,7 +406,8 @@ def training_times(torch, dev, card: str, cache, x_main, fitted, ds, report: dic
             b_ms, b_by = projection_bound(P, B, m, d, project)
             rows.append((name, label, (P, B), k_ms, p_ms, b_ms, b_by))
             print(f"[times] [{card}] {name} {label} (P, B)={(P, B)} m={m}: kernel "
-                  f"{k_ms:.6f} ms, plain {p_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
+                  f"{k_ms:.6f} ms, plain {p_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
+                  f"floor {report['floor_ms']:.6f} ms")
 
     pdata = partition.partition_data(ds.x, ds.y, fitted.grid, device=dev)
     state = fitted.state
@@ -447,9 +476,12 @@ def run(report: dict) -> None:
     build.library()
     report["build_s"] = time.perf_counter() - t0
     print(f"[build] {report['build_s']:.2f} s ({build.NVCC_FLAGS[1]})")
-    for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    report["ptxas"] = ptxas_report(build.build_log)
+    for family in sorted({k.split("<")[0] for k in report["ptxas"]}):
+        insts = sorted((tuple(int(a) for a in k[len(family) + 1:-1].split(",")), r, sp)
+                       for k, (r, sp) in report["ptxas"].items() if k.startswith(family + "<"))
+        print(f"[build] {family}<MMAX,KD,...> registers (+spill bytes): "
+              + ", ".join(f"{args} {r}" + (f"+{sp}" if sp else "") for args, r, sp in insts))
 
     # -- 3. kernels against their plain versions ---------------------------
     fitted = api.FittedPSVGP.load(FIXTURE, device=dev)
@@ -495,7 +527,7 @@ def run(report: dict) -> None:
     errors["posterior_predict_slots"] = compare(
         "slots P=400 S=9 Q=32 m=5 d=2 (artifact)", got, want, scales)
     for P, S, Q, m, d in ((3, 9, 77, 1, 2), (5, 9, 200, 10, 2), (2, 4, 333, 17, 3),
-                          (2, 9, 129, 64, 4), (1, 1, 1, 5, 1)):
+                          (2, 9, 129, 64, 4), (1, 1, 1, 5, 1), (1, 1, 65536, 5, 2)):
         args = random_case(P, m, d)
         hx = t(rng.uniform(0, 2, (P, S, Q, d)))
         got = predict.posterior_predict_slots(hx, *args)
@@ -635,20 +667,27 @@ def run(report: dict) -> None:
     check(report["launches_rbf_path"]["rbf_cross_cov"] == 1, "ops.rbf_cross_cov did not launch")
 
     # -- 6. times ------------------------------------------------------------
+    # the launch floor: the least device time of any launch through the
+    # same graph, beside every kernel row
+    one = torch.zeros(1, device=dev)
+    report["floor_ms"] = device_ms(torch, lambda: one.add_(1.0))
+    print(f"[times] [{card}] launch floor (one-element add_): {report['floor_ms']:.6f} ms")
     rows = []
     big = np.random.default_rng(1).uniform(
         [grid.x_edges[0], grid.y_edges[0]], [grid.x_edges[-1], grid.y_edges[-1]], (65536, 2)
     ).astype(np.float32)
     big_table = routing.build_routing_table(grid, big)
     hx_big = torch.as_tensor(routing.make_halo_stacker(grid)(big_table.xq), device=dev)
-    for label, hx in (("main", hx_main), ("65,536 queries", hx_big)):
+    x_big = torch.as_tensor(big, device=dev)
+    cell0 = [a[:1] for a in leaves]
+    for label, hx, factors in (("main", hx_main, leaves), ("65,536 queries", hx_big, leaves),
+                               ("one cell, 65,536 rows", x_big[None, None], cell0)):
         P, S, Q, d = hx.shape
-        k_ms = device_ms(torch, lambda hx=hx: predict.posterior_predict_slots(hx, *leaves))
-        p_ms = device_ms(torch, lambda hx=hx: ref.posterior_predict_slots_stacked(hx, *leaves))
+        k_ms = device_ms(torch, lambda hx=hx, f=factors: predict.posterior_predict_slots(hx, *f))
+        p_ms = device_ms(torch, lambda hx=hx, f=factors: ref.posterior_predict_slots_stacked(hx, *f))
         b_ms, b_by = bound(P, S, Q, 5, d)
         rows.append(("posterior_predict_slots", label, (P, S, Q), k_ms, p_ms, b_ms, b_by))
     x_main = hx_main[0].reshape(-1, 2).contiguous()
-    x_big = torch.as_tensor(big, device=dev)
     one_cell = [a[0] for a in leaves]
     for label, x in (("main", x_main), ("65,536 queries", x_big)):
         k_ms = device_ms(torch, lambda x=x: predict.posterior_predict(x, *one_cell))
@@ -657,12 +696,8 @@ def run(report: dict) -> None:
         rows.append(("posterior_predict", label, (1, 1, x.shape[0]), k_ms, p_ms, b_ms, b_by))
     for name, label, shape, k_ms, p_ms, b_ms, b_by in rows:
         print(f"[times] [{card}] {name} {label} (P, S, Q)={shape}: kernel {k_ms:.6f} ms, "
-              f"plain {p_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
-    report["times"] = [
-        {"name": n, "shape": list(s), "label": lab, "ms": k, "plain_ms": p,
-         "bound_ms": b, "bound_by": by}
-        for n, lab, s, k, p, b, by in rows
-    ]
+              f"plain {p_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
+              f"floor {report['floor_ms']:.6f} ms")
 
     reqs = [
         np.random.default_rng(10 + i).uniform(
@@ -723,6 +758,11 @@ def run(report: dict) -> None:
         print(f"[times] [{card}] device busy share: not measured "
               "(torch.profiler saw no device activity)")
     rows += training_times(torch, dev, card, cache, x_train, trained, ds, report)
+    report["times"] = [
+        {"name": n, "shape": list(s), "label": lab, "ms": k, "plain_ms": p,
+         "bound_ms": b, "bound_by": by, "floor_ms": report["floor_ms"]}
+        for n, lab, s, k, p, b, by in rows
+    ]
 
     def main_row(name):
         return next(r for r in rows if r[0] == name and r[1] == "main")

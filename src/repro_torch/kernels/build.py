@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects are linked into one
 shared library with a plain C interface — no PyTorch headers, so a build
 takes seconds instead of minutes — and loaded with ``ctypes``. The
 library lands in ``_build/`` next to this file (listed in ``.gitignore``)
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -46,12 +47,18 @@ build_log = ""  # nvcc's output (ptxas register/shared-memory report) of the las
 
 
 def sources() -> list[Path]:
+    """The translation units, one nvcc each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    """What the sources include from ``csrc/``."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in (*sources(), *headers()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -68,6 +75,31 @@ def nvcc() -> str:
     return path
 
 
+def compile_shared(srcs: list[Path], lib: Path) -> str:
+    """Compile ``srcs`` with one ``nvcc`` each, all started together, and
+    link them into the shared library ``lib``; return nvcc's output. Raises
+    if any step fails."""
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in srcs]
+        jobs = [
+            subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs, strict=True)
+        ]
+        log = "".join(job.communicate()[0] for job in jobs)
+        failed = [job.returncode for job in jobs if job.returncode != 0]
+        if not failed:
+            so = os.path.join(tmp, "lib.so")
+            done = subprocess.run([nvcc(), "-shared", "-o", so, *objs],
+                                  capture_output=True, text=True, check=False)
+            log += done.stdout + done.stderr
+            failed = [done.returncode] if done.returncode != 0 else []
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
+        os.replace(so, lib)  # atomic: concurrent builders never see a partial file
+    return log
+
+
 def build() -> Path:
     """Compile the sources unless a library with their hash exists; return it."""
     global build_log
@@ -75,19 +107,18 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-        done = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        build_log = done.stdout + done.stderr
-        if done.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({done.returncode}):\n{build_log}")
-        os.replace(tmp, lib)  # atomic: concurrent builders never see a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    build_log = compile_shared(sources(), lib)
     return lib
+
+
+def bind(lib: Path) -> ctypes.CDLL:
+    """Load a built library and declare every C entry's signature."""
+    handle = ctypes.CDLL(str(lib))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return handle
 
 
 def library() -> ctypes.CDLL:
@@ -95,10 +126,5 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = bind(build())
         return _lib

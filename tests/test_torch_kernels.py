@@ -150,15 +150,19 @@ def test_wrappers_take_cuda_tensors_only_and_count_nothing_on_refusal():
 
 def test_build_is_lazy_and_keyed_by_source_content(tmp_path, monkeypatch):
     assert [p.name for p in build.sources()] == ["predict.cu", "svgp_proj.cu"]
+    assert [p.name for p in build.headers()] == ["kernel_common.cuh"]
     assert build._lib is None  # importing the package built nothing
     h = build.source_hash()
     assert h == build.source_hash() and len(h) == 16
-    for src in build.sources():
+    for src in (*build.sources(), *build.headers()):
         (tmp_path / src.name).write_text(src.read_text())
     monkeypatch.setattr(build, "CSRC", tmp_path)
     assert build.source_hash() == h
+    (tmp_path / "kernel_common.cuh").write_text("// changed\n")
+    changed = build.source_hash()
+    assert changed != h
     (tmp_path / "predict.cu").write_text("// changed\n")
-    assert build.source_hash() != h
+    assert build.source_hash() not in (h, changed)
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert "--use_fast_math" not in build.NVCC_FLAGS
 
@@ -190,8 +194,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,S,Q,m,d", [(400, 9, 32, 5, 2), (3, 9, 77, 1, 2), (2, 4, 333, 17, 3),
-                                       (2, 9, 129, 64, 4)])
+@pytest.mark.parametrize("P,S,Q,m,d", [
+    (400, 9, 32, 5, 2), (3, 9, 77, 1, 2), (2, 4, 333, 17, 3), (2, 9, 129, 64, 4),
+    # a tile edge inside a cell (S*Q not a multiple of the tile), Q = 1,
+    # P = 1 at 65,536 rows (the cell spread over many blocks), every MMAX
+    (400, 9, 216, 5, 2), (1, 1, 65536, 5, 2), (7, 9, 1, 8, 1), (3, 3, 37, 9, 4),
+    (2, 9, 50, 33, 2), (1, 1, 1, 64, 1), (5, 1, 333, 5, 4), (1, 7, 113, 1, 1),
+])
 def test_cuda_slots_kernel_matches_plain(cuda_device, P, S, Q, m, d):
     rng = np.random.default_rng(P + Q)
     f = _t(_factors(rng, (P,), m, d), cuda_device)
@@ -229,3 +238,33 @@ def test_cuda_slots_kernel_rows_are_independent(cuda_device):
     again = ops.posterior_predict_slots(junk, *f)
     assert torch.equal(base[0][valid], again[0][valid])
     assert torch.equal(base[1][valid], again[1][valid])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(5, 2), (9, 1), (33, 4)])
+def test_cuda_slots_rows_are_bitwise_the_same_at_any_q_max(cuda_device, m, d):
+    """A row's bits do not depend on the tile, thread or row slot it lands
+    on, nor on how many rows a thread takes: the same rows at q_max = 32,
+    at the end of q_max = 216 and of q_max = 5,120 blocks (a launch past
+    one wave, several rows per thread), and read from an address where a
+    float2 load does not fit."""
+    rng = np.random.default_rng(m + d)
+    P, S = 6, 9
+    f = _t(_factors(rng, (P,), m, d), cuda_device)
+    rows = torch.as_tensor(rng.uniform(0, 2, (P, S, 32, d)).astype(np.float32), device=cuda_device)
+    flat = torch.empty(rows.numel() + 1, device=cuda_device)
+    shifted = flat[1:].view(rows.shape)  # contiguous, 4 bytes past an 8-byte boundary
+    shifted.copy_(rows)
+    base = predict.posterior_predict_slots(rows, *f)
+    unaligned = predict.posterior_predict_slots(shifted, *f)
+    one_cell = [ops.posterior_predict_slots(rows[p], *(a[p] for a in f)) for p in range(P)]
+    for i in range(2):
+        assert torch.equal(base[i], unaligned[i])
+        assert torch.equal(base[i], torch.stack([o[i] for o in one_cell]))
+    for q_max in (216, 5120):
+        wide = torch.as_tensor(rng.uniform(0, 2, (P, S, q_max, d)).astype(np.float32),
+                               device=cuda_device)
+        wide[:, :, -32:] = rows
+        at_q = predict.posterior_predict_slots(wide, *f)
+        for i in range(2):
+            assert torch.equal(base[i], at_q[i][:, :, -32:])

@@ -193,8 +193,14 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,B,m,d", [(400, 32, 5, 2), (1, 1, 1, 2), (1, 33, 10, 3),
-                                     (1, 200, 17, 4), (1, 200, 64, 2)])
+@pytest.mark.parametrize("P,B,m,d", [
+    (400, 32, 5, 2), (1, 1, 1, 2), (1, 33, 10, 3), (1, 200, 17, 4), (1, 200, 64, 2),
+    # packed cells and one cell's tiles, B = 1, P = 1 at 65,536 rows, every
+    # MMAX; (600, 111, 5) and (70, 1000, 8) store slabs (>= 65,536 rows)
+    # that start on unaligned addresses
+    (1, 65536, 5, 2), (50, 7, 5, 2), (2, 129, 5, 2), (400, 1, 1, 2), (7, 1, 8, 1),
+    (3, 33, 9, 4), (1, 127, 33, 2), (2, 200, 64, 4), (600, 111, 5, 2), (70, 1000, 8, 4),
+])
 def test_cuda_projection_and_rbf_kernels_match_plain(cuda_device, P, B, m, d):
     rng = np.random.default_rng(P + B + m)
     x, z, log_l, log_v, lmm = _problem(rng, (P,), B, m, d)
@@ -202,7 +208,8 @@ def test_cuda_projection_and_rbf_kernels_match_plain(cuda_device, P, B, m, d):
     svgp_proj.reset_launches()
     got = svgp_proj.svgp_projection(*args)
     assert svgp_proj.LAUNCHES["svgp_projection"] == 1
-    _assert_projection_agrees(got, [g.cpu() for g in ref.svgp_projection(*args)], args)
+    _assert_projection_agrees([g.cpu() for g in got],
+                              [g.cpu() for g in ref.svgp_projection(*args)], [a.cpu() for a in args])
     knm = rbf.rbf_cross_cov(*args[:4])
     assert torch.equal(knm, got[0])
 
@@ -221,3 +228,29 @@ def test_cuda_function_gradient_matches_plain_autograd_with_one_launch(cuda_devi
     for g, w in zip(got, want, strict=True):
         scale = max(1.0, float(w.abs().max()))
         assert float((g - w).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,B,m,d", [(50, 7, 5, 2), (2, 129, 5, 2), (5, 33, 9, 4),
+                                     (600, 111, 5, 2), (70, 1000, 8, 4)])
+def test_cuda_projection_rows_are_bitwise_the_same_however_packed(cuda_device, P, B, m, d):
+    """A row's outputs do not depend on how cells are packed into blocks,
+    on which tile a row lands, on whether the launch stores through
+    shared-memory slabs, or on where a slab starts: all P cells in one
+    launch equal each cell alone, bitwise, and an x read from an address
+    where a float2 load does not fit gives the same bits."""
+    rng = np.random.default_rng(P * B + m)
+    x, z, log_l, log_v, lmm = _problem(rng, (P,), B, m, d)
+    args = _t([x, z, log_l, log_v, _lower_inverse(lmm)], device=cuda_device)
+    together = svgp_proj.svgp_projection(*args)
+    flat = torch.empty(args[0].numel() + 1, device=cuda_device)
+    shifted = flat[1:].view(args[0].shape)
+    shifted.copy_(args[0])
+    unaligned = svgp_proj.svgp_projection(shifted, *args[1:])
+    knm = rbf.rbf_cross_cov(*args[:4])
+    assert torch.equal(knm, together[0])
+    for p in range(P):
+        alone = svgp_proj.svgp_projection(*(a[p:p + 1] for a in args))
+        for got, one, again in zip(together, alone, unaligned, strict=True):
+            assert torch.equal(got[p:p + 1], one)
+            assert torch.equal(got, again)
