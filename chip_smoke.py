@@ -11,35 +11,47 @@ Phases, each printed as it runs; any failure exits non-zero:
               and spills of every template instance.
   3. kernels  each CUDA kernel against its plain PyTorch version on the
               card. Prediction: at the serving path's shape (the paper's
-              400-cell artifact, 9 halo slots, q_max 32, m 5) and at
+              400-cell artifact, 9 halo slots, q_max 32, m 5; the
+              single-block entry as the "pallas" lane's one launch over
+              the 400 cells, bitwise the 400 per-cell launches) and at
               ragged/odd shapes (m in {1, 10, 17, 64}, Q not a multiple of
               128, d up to 4) and one cell's 65,536 rows, plus row
-              independence. Training: the
-              ELBO projection and K(X, Z) at the training step's shape
-              (400 cells x 32 rows, m 5, on the artifact's factors), at
-              every m in {1, 10, 17, 64} x B in {1, 33, 200} (P = 1, d up
-              to 4) and at B = 65,536 with m = 64; then the gradient of the
-              autograd Function against plain-version autograd.
+              independence. Training: the ELBO projection and K(X, Z) at
+              the training step's shape (400 cells x 32 rows, m 5, on the
+              artifact's factors), at every m in {1, 10, 17, 64} x B in
+              {1, 33, 200} (P = 1, d up to 4) and at B = 65,536 with m = 64;
+              then the gradient of the autograd Function against
+              plain-version autograd. Wide: every entry at m in {65, 128,
+              256, 1,024, 2,048} and d in {5, 8} with ragged Q and B (the
+              wide body), K(X, Z)'s knm bitwise the projection's, and the
+              gradient at m = 128.
   4. serving  Server.from_artifact(the committed JAX-trained artifact,
               ServeConfig(mode="sharded")) on the card: answers against the
               JAX answers stored beside it, the kernel's launch count over
               the run, serial == pipelined and submit_many == solo submit
               bitwise; the two-level router on a zipf stream; the "pallas"
-              lane; the replicated lane against the JAX replicated answers.
+              lane (exactly one launch a request); the replicated lane
+              against the JAX replicated answers.
   5. training api.fit at the paper's configuration (48,602 points, 20 x 20
               cells, m 5, delta 0.125, batch 32, lr 0.05, 2,500 steps) on
               the card: one projection launch per step, in-sample RMSPE and
               boundary RMSD inside the band of the JAX package's seeds,
               save -> load -> serve bitwise, a ppermute fit, a warm refit,
-              refit(scratch) == fit bitwise.
+              refit(scratch) == fit bitwise. Then a wide model: api.fit at
+              grid 4, m 128 (300 steps), one projection launch a step,
+              RMSPE within 15% of the same fit through the plain projection
+              on the card (and the same pair at jitter 1e-3), served on the
+              "fused" and "pallas" lanes within tolerance of backend="ref"
+              on the card.
   6. times    the launch floor (a one-element add_ through the same CUDA
-              graph); every kernel, its plain version and its bound at its
-              path's shape and at a 65,536-row batch (the slots kernel also
-              at one cell's 65,536 rows); p50/p95 latency and
-              points/s of a stream of 4,096-point requests, the host stages
-              of a request; ms per training step and fit seconds; the
-              device's busy share of a request and of a training step
-              (torch.profiler).
+              graph); every kernel, its plain version, its bound and share
+              at its path's shape and at a 65,536-row batch (the slots
+              kernel also at one cell's 65,536 rows), and at the wide
+              shapes beside torch.bmm of the same m x m products; p50/p95
+              latency and points/s of a stream of 4,096-point requests (the
+              "pallas" lane's p50 too), the host stages of a request; ms per
+              training step and fit seconds; the device's busy share of a
+              request (either lane) and of a training step (torch.profiler).
 
 Tolerances (``repro_torch.kernels.ref.tolerance_ratio``): float32 rounding
 scaled by the magnitude of the terms each output sums — prediction: per
@@ -105,8 +117,9 @@ def ptxas_report(log: str) -> dict:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             kernel = re.search(r"([a-z_]+_kernel)I(.*?)EEv", entry.group(1))
+            plain = re.search(r"([a-z_]+_kernel)EP", entry.group(1))
             name = (f"{kernel.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', kernel.group(2) + 'E'))}>"
-                    if kernel else entry.group(1))
+                    if kernel else f"{plain.group(1)}<>" if plain else entry.group(1))
             out[name] = [None, 0]
         elif name is not None:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -144,13 +157,16 @@ def bound(P: int, S: int, Q: int, m: int, d: int) -> tuple[float, str]:
 def projection_bound(P: int, B: int, m: int, d: int, project: bool) -> tuple[float, str]:
     """Least time (ms) for one launch of the projection (``project``) or the
     K(X, Z) kernel: x and the P cells' z, log l, log sigma^2 (and W) read
-    once; knm (and lk_t, q_diag) written once. Operations per row: scale x
+    once; knm (and lk_t, q_diag) written once. W = Lmm^{-1} is lower
+    triangular (the kernel's precondition), so the function needs its
+    m(m+1)/2 entries on and below the diagonal. Operations per row: scale x
     (d); per inducing point the difference, square and sum (3d), -0.5 r2,
-    exp, * sigma^2 (3); then lk_t = knm W^T (2m^2) and q_diag (2m)."""
+    exp, * sigma^2 (3); then lk_t = knm W^T over W's triangle (m(m+1)) and
+    q_diag (2m)."""
     rows = P * B
-    nbytes = 4 * (rows * d + P * (m * d + d + 1 + (m * m if project else 0))
+    nbytes = 4 * (rows * d + P * (m * d + d + 1 + (m * (m + 1) // 2 if project else 0))
                   + rows * m * (2 if project else 1) + (rows if project else 0))
-    flops = rows * (d + m * (3 * d + 3) + ((2 * m * m + 2 * m) if project else 0))
+    flops = rows * (d + m * (3 * d + 3) + ((m * (m + 1) + 2 * m) if project else 0))
     return _bound(nbytes, flops)
 
 
@@ -194,6 +210,40 @@ def device_busy(torch, prof, n: int) -> tuple[float, dict]:
     return busy_us, dict(sorted(per_name.items(), key=lambda kv: -kv[1])[:6])
 
 
+# m past the prediction's narrow body (m > 64; the projection's wide body
+# starts at m = 17, which the ragged cases above reach) and d past 4, as the
+# JAX package takes them: (P, S, Q, m, d) for the slots entry, (P, Q, m, d) for the
+# single-block one, (P, B, m, d) for the projection and K(X, Z); ragged Q and
+# B against the wide body's 32-row tiles and 64 x 32 factor tiles
+WIDE_SLOTS = ((3, 9, 77, 65, 5), (2, 4, 133, 128, 8), (2, 9, 50, 256, 2),
+              (1, 3, 97, 1024, 5), (4, 9, 33, 5, 8), (1, 1, 45, 2048, 2))
+WIDE_SINGLE = ((5, 123, 65, 8), (3, 301, 128, 5), (2, 77, 256, 8), (1, 519, 1024, 2),
+               (6, 45, 7, 5))
+WIDE_PROJ = ((3, 45, 65, 5), (2, 333, 128, 8), (1, 100, 256, 5), (1, 77, 1024, 8),
+             (7, 33, 5, 8), (1, 40, 2048, 2),
+             # K(X, Z) past one wave (its z/l staged), m % 4 == 0 and not
+             (40, 1024, 32, 2), (30, 1500, 25, 3))
+
+
+def check_wide_predict(torch, random_case, t, rng, compare) -> None:
+    """Phase 3: both prediction entries against their plain versions at
+    every wide shape (m in {65, 128, 256, 1,024, 2,048}, d in {5, 8})."""
+    from repro_torch.kernels import predict, ref
+
+    for P, S, Q, m, d in WIDE_SLOTS:
+        args = random_case(P, m, d)
+        hx = t(rng.uniform(0, 2, (P, S, Q, d)))
+        compare(f"slots P={P} S={S} Q={Q} m={m} d={d} (wide)",
+                predict.posterior_predict_slots(hx, *args),
+                ref.posterior_predict_slots_stacked(hx, *args),
+                ref.posterior_predict_scales(hx, *(a[:, None] for a in args)))
+    for P, Q, m, d in WIDE_SINGLE:
+        args = random_case(P, m, d)
+        x = t(rng.uniform(0, 2, (P, Q, d)))
+        compare(f"single-block P={P} Q={Q} m={m} d={d} (wide)", predict.posterior_predict(x, *args),
+                ref.posterior_predict(x, *args), ref.posterior_predict_scales(x, *args))
+
+
 def check_training_kernels(torch, dev, fitted, x_main, errors: dict) -> None:
     """Phase 3, training half: the projection and K(X, Z) kernels against
     their plain versions at the training step's shape (``x_main`` (400, 32,
@@ -210,12 +260,12 @@ def check_training_kernels(torch, dev, fitted, x_main, errors: dict) -> None:
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    def random_case(B, m, d):
-        z = t(rng.uniform(0, 2, (1, m, d)))
-        log_l = t(np.log(rng.uniform(0.3, 1.5, (1, d))))
-        log_v = t(rng.normal(0, 0.5, 1))
-        w = t(np.tril(rng.normal(0, 1, (1, m, m))) / np.sqrt(m))
-        return t(rng.uniform(0, 2, (1, B, d))), z, log_l, log_v, w
+    def random_case(B, m, d, P=1):
+        z = t(rng.uniform(0, 2, (P, m, d)))
+        log_l = t(np.log(rng.uniform(0.3, 1.5, (P, d))))
+        log_v = t(rng.normal(0, 0.5, P))
+        w = t(np.tril(rng.normal(0, 1, (P, m, m))) / np.sqrt(m))
+        return t(rng.uniform(0, 2, (P, B, d))), z, log_l, log_v, w
 
     def compare(name, args):
         got = svgp_proj.svgp_projection(*args)
@@ -227,6 +277,7 @@ def check_training_kernels(torch, dev, fitted, x_main, errors: dict) -> None:
         knm = rbf.rbf_cross_cov(*args[:4])
         r_rbf = ref.tolerance_ratio(knm, ref.rbf_cross_cov(*args[:4]), knm_s, floor=0.0)
         check(all(bool(torch.isfinite(g).all()) for g in (*got, knm)), f"{name}: non-finite output")
+        check(torch.equal(knm, got[0]), f"{name}: K(X, Z)'s knm differs from the projection's")
         check(max(ratios) <= 1, f"{name}: projection kernel disagrees with its plain version")
         check(r_rbf <= 1, f"{name}: rbf_cross_cov kernel disagrees with its plain version")
         err = max(float((g - w).abs().max()) for g, w in zip(got, want, strict=True))
@@ -243,6 +294,8 @@ def check_training_kernels(torch, dev, fitted, x_main, errors: dict) -> None:
         d = 1 + i % 4
         compare(f"P=1 B={B} m={m} d={d}", random_case(B, m, d))
     compare("P=1 B=65536 m=64 d=2", random_case(65536, 64, 2))
+    for P, B, m, d in WIDE_PROJ:
+        compare(f"P={P} B={B} m={m} d={d} (wide)", random_case(B, m, d, P))
 
     # the gradient: the Function (kernel forward, plain recompute backward)
     # against autograd through the plain version, on the Cholesky factor of
@@ -264,6 +317,30 @@ def check_training_kernels(torch, dev, fitted, x_main, errors: dict) -> None:
         check(bool(torch.isfinite(g).all()) and ratio <= 1, f"gradient wrt {name} disagrees")
     print(f"[kernels] gradient of the projection Function vs plain autograd "
           f"(P=400 B=32 m=5): worst tol ratio {worst:.3f}; one launch, none in the backward")
+
+    # the same at m = 128 (the wide body's forward), on the Cholesky factor
+    # of an RBF Kmm + 1e-3 I of seeded inducing points
+    x, z, log_l, log_v, _ = random_case(40, 128, 2, P=6)
+    kmm = ref.rbf_cross_cov(z, z, log_l, log_v).double()
+    eye = torch.eye(128, device=dev, dtype=torch.float64)
+    lmm = torch.linalg.cholesky(kmm + 1e-3 * eye).float()
+    args = [x, z, log_l, log_v, lmm]
+    cot = [t(rng.normal(size=s)) for s in ((6, 40, 128), (6, 40, 128), (6, 40))]
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    before = svgp_proj.LAUNCHES["svgp_projection"]
+    got = torch.autograd.grad(ops.svgp_projection(*leaves), leaves, cot)
+    check(svgp_proj.LAUNCHES["svgp_projection"] == before + 1,
+          "the Function at m = 128 launched the kernel other than once")
+    plain = [a.clone().requires_grad_(True) for a in args]
+    want = torch.autograd.grad(ops.svgp_projection_ref(*plain), plain, cot)
+    worst = 0.0
+    for name, g, w in zip(("x", "z", "log_l", "log_v", "lmm"), got, want, strict=True):
+        ratio = float((g - w).abs().max()) / (1e-5 * max(1.0, float(w.abs().max())))
+        worst = max(worst, ratio)
+        check(bool(torch.isfinite(g).all()) and ratio <= 1,
+              f"gradient wrt {name} disagrees at m = 128")
+    print(f"[kernels] gradient of the projection Function vs plain autograd "
+          f"(P=6 B=40 m=128): worst tol ratio {worst:.3f}; one launch")
 
 
 def train_quality(torch, fitted, data, label: str) -> tuple[float, float]:
@@ -376,6 +453,83 @@ def train_slice(torch, dev, card: str, report: dict, ds):
     return fitted
 
 
+def wide_slice(torch, dev, card: str, report: dict, ds):
+    """Phase 5b: a model past the narrow kernels' m on the card. ``api.fit``
+    at grid 4, m 128 (300 steps): one projection launch per step (the wide
+    body), its RMSPE within 15% of its witness, the same fit (config, seed,
+    draws) with the ELBO's projection in its plain PyTorch form on the card;
+    the same pair at jitter 1e-3, where Kmm of 128 inducing points is better
+    conditioned than at the default 1e-5 and 300 steps go further. Then
+    ``Server`` over the first fit on the "fused" and "pallas" lanes against
+    ``backend="ref"`` on the card, each kernel lane launching its kernel
+    exactly once per request."""
+    from repro_torch import api
+    from repro_torch.core import partition, psvgp
+    from repro_torch.core.blend import blend_error_scales
+    from repro_torch.kernels import predict, ref, svgp_proj
+
+    def plain_twin(fitted):
+        """``fitted``'s training run again with the plain projection."""
+        static = fitted.static
+        static = static._replace(cfg=static.cfg._replace(
+            svgp=static.cfg.svgp._replace(use_pallas=False)))
+        pdata = partition.partition_data(ds.x, ds.y, fitted.grid, device=dev)
+        state = psvgp.init(fitted.config.seed, static.cfg, pdata)
+        state = psvgp.fit(static, state, pdata, fitted.config.train_iters)
+        return api.FittedPSVGP(fitted.config, fitted.grid, static, state)
+
+    report["wide_fit"] = {}
+    wide = None
+    for jitter in (1e-5, 1e-3):
+        cfg = api.FitConfig(grid=4, m=128, delta=0.125, train_iters=300, batch_size=32,
+                            learning_rate=0.05, seed=0, jitter=jitter)
+        svgp_proj.reset_launches()
+        t0 = time.perf_counter()
+        fitted = api.fit(cfg, ds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = svgp_proj.LAUNCHES["svgp_projection"]
+        check(launches == cfg.train_iters,
+              f"wide fit: projection launches {launches} != {cfg.train_iters} steps")
+        label = f"grid 4, m 128, jitter {jitter:g}, 300 steps"
+        rmspe, rmsd = train_quality(torch, fitted, ds, f"{label}, kernel")
+        svgp_proj.reset_launches()
+        twin = plain_twin(fitted)
+        check(svgp_proj.LAUNCHES["svgp_projection"] == 0, "the plain twin launched the kernel")
+        rmspe_p, rmsd_p = train_quality(torch, twin, ds, f"{label}, plain projection")
+        report["wide_fit"][f"jitter {jitter:g}"] = {
+            "seconds": wall, "projection_launches": launches, "rmspe": rmspe,
+            "boundary_rmsd": rmsd, "plain_rmspe": rmspe_p, "plain_boundary_rmsd": rmsd_p}
+        check(abs(rmspe - rmspe_p) <= 0.15 * rmspe_p,
+              f"wide fit ({label}): RMSPE {rmspe:.5f} not within 15% of the plain "
+              f"projection's {rmspe_p:.5f}")
+        print(f"[wide] [{card}] api.fit {label}: {wall:.3f} s, {launches} projection launches; "
+              f"RMSPE {rmspe:.5f} vs {rmspe_p:.5f} through the plain projection")
+        wide = wide or fitted
+    lo = [wide.grid.x_edges[0], wide.grid.y_edges[0]]
+    hi = [wide.grid.x_edges[-1], wide.grid.y_edges[-1]]
+    q = np.random.default_rng(8).uniform(lo, hi, (4096, 2)).astype(np.float32)
+    want = api.Server(wide, api.ServeConfig(mode="sharded", backend="ref")).submit(q)
+    mean_scale, var_scale = blend_error_scales(wide.cache, wide.grid, q)
+    for lane, entry in (("fused", "posterior_predict_slots"), ("pallas", "posterior_predict")):
+        server = api.Server(wide, api.ServeConfig(mode="sharded", backend=lane))
+        predict.reset_launches()
+        got = server.submit(q)
+        n = predict.LAUNCHES[entry]
+        check(n == 1, f"wide {lane} lane: {n} launches of {entry} in one request, not 1")
+        rm = ref.tolerance_ratio(torch.as_tensor(got[0]), torch.as_tensor(want[0]),
+                                 mean_scale.cpu())
+        rv = ref.tolerance_ratio(torch.as_tensor(got[1]), torch.as_tensor(want[1]),
+                                 var_scale.cpu())
+        check(np.isfinite(got[0]).all() and np.isfinite(got[1]).all(),
+              f"wide {lane} lane: non-finite answers")
+        check(rm <= 1 and rv <= 1, f"wide {lane} lane disagrees with backend='ref' on the card")
+        report["wide_fit"][f"{lane}_vs_ref"] = [rm, rv]
+        print(f"[wide] [{card}] Server on the m 128 model, {lane} lane vs ref: tol ratio mean "
+              f"{rm:.3f} var {rv:.3f}; 1 launch of {entry} per request")
+    return wide
+
+
 def training_times(torch, dev, card: str, cache, x_main, fitted, ds, report: dict) -> list:
     """Phase 6, training half: device time of the projection and K(X, Z)
     kernels at the training step's shape and at 65,536 rows (one cell's
@@ -455,6 +609,85 @@ def training_times(torch, dev, card: str, cache, x_main, fitted, ds, report: dic
     return rows
 
 
+# (entry, shape, m, d) of the wide time rows: both prediction entries at
+# m = 128 and 1,024; the projection at the JAX package's kernel benchmark
+# shapes (benchmarks/bench_kernels.py: (B, m, d) = (256, 128, 2) and
+# (1,024, 128, 3)), at 400 cells of m = 128 and at m = 1,024; K(X, Z) at the
+# same benchmark shapes and at one store-bound shape that writes 210 MB
+WIDE_TIMES = (
+    ("posterior_predict_slots", (16, 9, 256), 128, 2),
+    ("posterior_predict_slots", (4, 1, 4096), 1024, 2),
+    ("posterior_predict", (16, 2304), 128, 2),
+    ("posterior_predict", (4, 4096), 1024, 2),
+    ("svgp_projection", (1, 256), 128, 2),
+    ("svgp_projection", (1, 1024), 128, 3),
+    ("svgp_projection", (400, 32), 128, 2),
+    ("svgp_projection", (1, 4096), 1024, 2),
+    ("rbf_cross_cov", (1, 256), 128, 2),
+    ("rbf_cross_cov", (1, 1024), 128, 3),
+    ("rbf_cross_cov", (400, 4096), 32, 2),
+)
+
+
+def wide_times(torch, dev, card: str, report: dict) -> list:
+    """Phase 6: device time of every entry at the wide shapes, beside its
+    plain version, its bound and share and the launch floor; at the
+    prediction and projection rows also ``torch.bmm`` for the same m x m
+    products (TF32 off), a yardstick for the FFMA tile loop, not a port of
+    anything."""
+    from repro_torch.kernels import predict, rbf, ref, svgp_proj
+
+    rng = np.random.default_rng(11)
+    rows = []
+    report["bmm_ms"] = {}
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    for name, shape, m, d in WIDE_TIMES:
+        P = shape[0]
+        z = t(rng.uniform(0, 2, (P, m, d)))
+        log_l = t(np.log(rng.uniform(0.3, 1.5, (P, d))))
+        log_v = t(rng.normal(0, 0.5, P))
+        w = t(np.tril(rng.normal(0, 1, (P, m, m))) / np.sqrt(m))
+        x = t(rng.uniform(0, 2, (*shape, d)))
+        bmm_ms = None
+        if name.startswith("posterior_predict"):
+            u = t(rng.normal(0, 1, (P, m, m)) / np.sqrt(m))
+            c = t(rng.normal(0, 1, (P, m)))
+            args = (x, z, log_l, log_v, w, u, c)
+            if name == "posterior_predict_slots":
+                kernel, plain = predict.posterior_predict_slots, ref.posterior_predict_slots_stacked
+                S, Q = shape[1], shape[2]
+            else:
+                kernel, plain = predict.posterior_predict, ref.posterior_predict
+                S, Q = 1, shape[1]
+            b_ms, b_by = bound(P, S, Q, m, d)
+            knm = ref.rbf_cross_cov(x.reshape(P, S * Q, d), z, log_l, log_v)
+            bmm_ms = device_ms(torch, lambda k=knm, a=w, b=u: (torch.bmm(k, a.mT),
+                                                                torch.bmm(k, b.mT)))
+            label = f"m={m} d={d} (P, S, Q)={(P, S, Q)}"
+        else:
+            project = name == "svgp_projection"
+            args = (x, z, log_l, log_v, w) if project else (x, z, log_l, log_v)
+            kernel = svgp_proj.svgp_projection if project else rbf.rbf_cross_cov
+            plain = ref.svgp_projection if project else ref.rbf_cross_cov
+            b_ms, b_by = projection_bound(P, shape[1], m, d, project)
+            if project:
+                knm = ref.rbf_cross_cov(x, z, log_l, log_v)
+                bmm_ms = device_ms(torch, lambda k=knm, a=w: torch.bmm(k, a.mT))
+            label = f"m={m} d={d} (P, B)={shape}"
+        k_ms = device_ms(torch, lambda f=kernel, a=args: f(*a))
+        p_ms = device_ms(torch, lambda f=plain, a=args: f(*a), reps=10)
+        rows.append((name, label, shape, k_ms, p_ms, b_ms, b_by))
+        report["bmm_ms"][f"{name} {label}"] = bmm_ms
+        print(f"[times] [{card}] {name} {label}: kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms, "
+              f"bound {b_ms:.6f} ms ({b_by}), share {b_ms / k_ms:.4f}, floor "
+              f"{report['floor_ms']:.6f} ms"
+              + (f"; torch.bmm of the m x m products {bmm_ms:.6f} ms" if bmm_ms else ""))
+    return rows
+
+
 def run(report: dict) -> None:
     import torch
 
@@ -478,7 +711,7 @@ def run(report: dict) -> None:
     print(f"[build] {report['build_s']:.2f} s ({build.NVCC_FLAGS[1]})")
     report["ptxas"] = ptxas_report(build.build_log)
     for family in sorted({k.split("<")[0] for k in report["ptxas"]}):
-        insts = sorted((tuple(int(a) for a in k[len(family) + 1:-1].split(",")), r, sp)
+        insts = sorted((tuple(int(a) for a in k[len(family) + 1:-1].split(",") if a), r, sp)
                        for k, (r, sp) in report["ptxas"].items() if k.startswith(family + "<"))
         print(f"[build] {family}<MMAX,KD,...> registers (+spill bytes): "
               + ", ".join(f"{args} {r}" + (f"+{sp}" if sp else "") for args, r, sp in insts))
@@ -535,28 +768,25 @@ def run(report: dict) -> None:
         scales = ref.posterior_predict_scales(hx, *(a[:, None] for a in args))
         compare(f"slots P={P} S={S} Q={Q} m={m} d={d}", got, want, scales)
 
-    # the single-block kernel ("pallas" lane): the main path's per-cell
-    # blocks (9 * 32 rows of each cell), then ragged cases
-    err = 0.0
+    # the single-block kernel ("pallas" lane): ONE launch over every cell's
+    # 9 * 32 rows (the lane's request), bitwise the same as one launch per
+    # cell; then ragged cases
+    x_cells = hx_main.reshape(grid.num_partitions, -1, 2)
+    got = predict.posterior_predict(x_cells, *leaves)
+    errors["posterior_predict"] = compare(
+        "single-block P=400 Q=288 m=5 d=2 (artifact)", got,
+        ref.posterior_predict(x_cells, *leaves), ref.posterior_predict_scales(x_cells, *leaves))
     for p in range(grid.num_partitions):
-        one = [a[p] for a in leaves]
-        x = hx_main[p].reshape(-1, 2)
-        got = predict.posterior_predict(x, *one)
-        want = ref.posterior_predict(x, *one)
-        scales = ref.posterior_predict_scales(x, *one)
-        check(ref.tolerance_ratio(got[0], want[0], scales[0]) <= 1
-              and ref.tolerance_ratio(got[1], want[1], scales[1]) <= 1,
-              f"single-block kernel disagrees on cell {p}")
-        err = max(err, float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
-    errors["posterior_predict"] = err
-    print(f"[kernels] single-block Q=288 m=5 d=2 (artifact, all 400 cells): max|d|={err:.3e}")
-    for Q, m, d in ((1, 1, 2), (1000, 10, 2), (517, 17, 2), (130, 64, 4)):
-        args = [a[0] for a in random_case(1, m, d)]
-        x = t(rng.uniform(0, 2, (Q, d)))
-        got = predict.posterior_predict(x, *args)
-        want = ref.posterior_predict(x, *args)
-        compare(f"single-block Q={Q} m={m} d={d}", got, want,
-                ref.posterior_predict_scales(x, *args))
+        one = predict.posterior_predict(x_cells[p:p + 1], *(a[p:p + 1] for a in leaves))
+        check(torch.equal(one[0], got[0][p:p + 1]) and torch.equal(one[1], got[1][p:p + 1]),
+              f"single-block: cell {p} launched alone differs from the one launch")
+    print("[kernels] single-block: one launch over 400 cells == 400 per-cell launches, bitwise")
+    for P, Q, m, d in ((1, 1, 1, 2), (1, 1000, 10, 2), (2, 517, 17, 2), (3, 130, 64, 4)):
+        args = random_case(P, m, d)
+        x = t(rng.uniform(0, 2, (P, Q, d)))
+        compare(f"single-block P={P} Q={Q} m={m} d={d}", predict.posterior_predict(x, *args),
+                ref.posterior_predict(x, *args), ref.posterior_predict_scales(x, *args))
+    check_wide_predict(torch, random_case, t, rng, compare)
 
     # row independence: the masked contract two-level routing relies on
     S, Q, m, d = 9, 200, 10, 2
@@ -650,7 +880,8 @@ def run(report: dict) -> None:
     launches_pallas = dict(predict.LAUNCHES)
     report["launches_pallas_path"] = launches_pallas
     print(f"[slice] pallas lane: launches {launches_pallas}")
-    check(launches_pallas["posterior_predict"] >= 1, "the pallas lane never launched its kernel")
+    check(launches_pallas == {"posterior_predict": 1, "posterior_predict_slots": 0},
+          "the pallas lane launched other than one single-block kernel for the request")
     vs_jax("sharded pallas", mp, vp, "routed")
     golden(pallas, stream, "single-level pallas")
 
@@ -659,6 +890,7 @@ def run(report: dict) -> None:
 
     # -- 5. training on the card ----------------------------------------------
     trained = train_slice(torch, dev, card, report, ds)
+    wide_slice(torch, dev, card, report, ds)
     rbf.reset_launches()
     ops.rbf_cross_cov(x_train, cache.z, cache.cov.log_lengthscale, cache.cov.log_variance)
     report["launches_rbf_path"] = dict(rbf.LAUNCHES)
@@ -687,17 +919,19 @@ def run(report: dict) -> None:
         p_ms = device_ms(torch, lambda hx=hx, f=factors: ref.posterior_predict_slots_stacked(hx, *f))
         b_ms, b_by = bound(P, S, Q, 5, d)
         rows.append(("posterior_predict_slots", label, (P, S, Q), k_ms, p_ms, b_ms, b_by))
-    x_main = hx_main[0].reshape(-1, 2).contiguous()
-    one_cell = [a[0] for a in leaves]
-    for label, x in (("main", x_main), ("65,536 queries", x_big)):
-        k_ms = device_ms(torch, lambda x=x: predict.posterior_predict(x, *one_cell))
-        p_ms = device_ms(torch, lambda x=x: ref.posterior_predict(x, *one_cell))
-        b_ms, b_by = bound(1, 1, x.shape[0], 5, 2)
-        rows.append(("posterior_predict", label, (1, 1, x.shape[0]), k_ms, p_ms, b_ms, b_by))
+    x_cells = hx_main.reshape(grid.num_partitions, -1, 2)
+    for label, x, factors in (("main", x_cells, leaves), ("one cell, Q=288", x_cells[:1], cell0),
+                              ("65,536 queries", x_big[None], cell0)):
+        P, Q, d = x.shape
+        k_ms = device_ms(torch, lambda x=x, f=factors: predict.posterior_predict(x, *f))
+        p_ms = device_ms(torch, lambda x=x, f=factors: ref.posterior_predict(x, *f))
+        b_ms, b_by = bound(P, 1, Q, 5, d)
+        rows.append(("posterior_predict", label, (P, 1, Q), k_ms, p_ms, b_ms, b_by))
     for name, label, shape, k_ms, p_ms, b_ms, b_by in rows:
         print(f"[times] [{card}] {name} {label} (P, S, Q)={shape}: kernel {k_ms:.6f} ms, "
-              f"plain {p_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
+              f"plain {p_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), share {b_ms / k_ms:.4f}, "
               f"floor {report['floor_ms']:.6f} ms")
+    rows += wide_times(torch, dev, card, report)
 
     reqs = [
         np.random.default_rng(10 + i).uniform(
@@ -737,26 +971,33 @@ def run(report: dict) -> None:
 
     # the device's busy share of a window of serial requests: the union of
     # every kernel and copy torch.profiler saw on the card, over the window's
-    # host time (which the profiler's own host cost lengthens a little)
+    # host time (which the profiler's own host cost lengthens a little); the
+    # fused lane, then the "pallas" lane (its p50 over 100 requests too)
+    pallas = api.Server(fitted, api.ServeConfig(mode="sharded", backend="pallas"))
+    rec = pallas.stream(reqs[:100])
+    report["stream"]["pallas serial"] = rec
+    print(f"[times] [{card}] stream of 100 x 4,096-point requests, sharded pallas serial: "
+          f"p50 {rec['latency_ms']['p50_ms']:.4f} ms, p95 {rec['latency_ms']['p95_ms']:.4f} ms")
     window = reqs[:20]
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for q in window:
-            serial.submit(q)
-        window_us = 1e6 * (time.perf_counter() - t0)
-    busy_us, per_name = device_busy(torch, prof, len(window))
-    if busy_us > 0:
-        report["device_busy_share"] = busy_us / window_us
-        report["device_us_per_request"] = per_name
-        print(f"[times] [{card}] device busy {busy_us / len(window):.1f} us of "
-              f"{window_us / len(window):.1f} us per 4,096-point request "
-              f"(share {report['device_busy_share']:.4f}); top device ops, us per request: "
-              + ", ".join(f"{k} {v:.1f}" for k, v in report["device_us_per_request"].items()))
-    else:
-        report["device_busy_share"] = None
-        print(f"[times] [{card}] device busy share: not measured "
-              "(torch.profiler saw no device activity)")
+    for lane, srv, key in (("fused", serial, ""), ("pallas", pallas, "pallas_")):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for q in window:
+                srv.submit(q)
+            window_us = 1e6 * (time.perf_counter() - t0)
+        busy_us, per_name = device_busy(torch, prof, len(window))
+        if busy_us > 0:
+            report[f"{key}device_busy_share"] = busy_us / window_us
+            report[f"{key}device_us_per_request"] = per_name
+            print(f"[times] [{card}] {lane} lane: device busy {busy_us / len(window):.1f} us of "
+                  f"{window_us / len(window):.1f} us per 4,096-point request "
+                  f"(share {busy_us / window_us:.4f}); top device ops, us per request: "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in per_name.items()))
+        else:
+            report[f"{key}device_busy_share"] = None
+            print(f"[times] [{card}] {lane} lane: device busy share: not measured "
+                  "(torch.profiler saw no device activity)")
     rows += training_times(torch, dev, card, cache, x_train, trained, ds, report)
     report["times"] = [
         {"name": n, "shape": list(s), "label": lab, "ms": k, "plain_ms": p,

@@ -119,8 +119,8 @@ class ServeConfig:
         package's names, so one session JSON configures both packages) —
         "ref"    plain PyTorch (every covariance);
         "pallas" the single-block CUDA kernel that replaces the Pallas
-                 ``posterior_predict_pallas`` (RBF only; one launch per
-                 cell on the halo path);
+                 ``posterior_predict_pallas``: one launch over every
+                 cell's 9 * q_max rows on the halo path (RBF only);
         "fused"  the slots CUDA kernel that replaces the Pallas
                  ``posterior_predict_slots_pallas``: one launch over every
                  cell's 9-slot halo (RBF only; the production lane);

@@ -274,27 +274,24 @@ def predict_cached_slots_stacked(
     hx (P, S, Q, d) -> (fmean (P, S, Q), fvar (P, S, Q)), clamped.
 
     The one-GPU halo program's evaluation. "fused" is ONE launch of the
-    slots kernel over (Q-blocks, S, P); "pallas" is one single-block
-    launch per cell (the JAX lane's reshape, per cell); "ref" is plain
-    PyTorch batched over P.
+    slots kernel over (Q-blocks, S, P); "pallas" is ONE launch of the
+    single-block kernel over every cell's (S*Q, d) rows (the JAX lane's
+    reshape; the JAX package vmaps the kernel over the cells); "ref" is
+    plain PyTorch batched over P.
     """
     backend = resolve_slot_backend(False, backend)
     if backend == "ref":
         per_slot = map_cache(lambda a: a[:, None], cache)  # leaves (P, 1, ...)
         return predict_cached(per_slot, cov_fn, hx, include_noise=include_noise)
+    P, S, Q, d = hx.shape
+    leaves = (cache.z, cache.cov.log_lengthscale, cache.cov.log_variance,
+              cache.w, cache.u, cache.c)
     if backend == "fused":
-        fmean, fvar = kops.posterior_predict_slots_stacked(
-            hx, cache.z, cache.cov.log_lengthscale, cache.cov.log_variance,
-            cache.w, cache.u, cache.c, cov_fn=cov_fn,
-        )
-        return fmean, _finish(cache.log_beta[:, None], fvar, include_noise)
-    outs = [
-        predict_cached_slots(
-            take_cache(cache, p), cov_fn, hx[p], include_noise=include_noise, backend="pallas"
-        )
-        for p in range(hx.shape[0])
-    ]
-    return torch.stack([m for m, _ in outs]), torch.stack([v for _, v in outs])
+        fmean, fvar = kops.posterior_predict_slots_stacked(hx, *leaves, cov_fn=cov_fn)
+    else:  # "pallas"
+        fmean, fvar = kops.posterior_predict(hx.reshape(P, S * Q, d), *leaves, cov_fn=cov_fn)
+        fmean, fvar = fmean.reshape(P, S, Q), fvar.reshape(P, S, Q)
+    return fmean, _finish(cache.log_beta[:, None], fvar, include_noise)
 
 
 def take_cache(cache: PosteriorCache, ids) -> PosteriorCache:

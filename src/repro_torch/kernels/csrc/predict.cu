@@ -4,16 +4,16 @@
 //   posterior_predict_slots_pallas  (the "fused" serving lane: S halo slots
 //                                    of one model in one launch), and
 //   posterior_predict_pallas        (the "pallas" lane: one query block).
-// Both are this one __global__ body: the slots entry runs it with a cell
-// axis, so ONE launch evaluates every cell's model on its own S halo
-// blocks; the single-block entry is P = S = 1.
+// Both entries take a cell axis, so ONE launch evaluates every cell's model
+// on its own S halo blocks (the slots entry) or its own (Q, d) block (the
+// single-block entry, S = 1: the "pallas" lane's whole request).
 //
 // Per query row, with cell p's factors staged in shared memory:
 //   knm_j = var * exp(-0.5 * sum_k (x_k/l_k - z_jk/l_k)^2)   explicit difference
 //   mean  = sum_j knm_j c_j
 //   fvar  = var - ||W knm||^2 + ||U knm||^2                  un-clamped
 // W = Lmm^{-1}, U the S-factor, c the projected mean (repro_torch.core.
-// posterior). knm never leaves registers. Rows are independent (the
+// posterior); in the narrow body knm never leaves registers. Rows are independent (the
 // row-independence contract two-level routing relies on): every row runs
 // the same explicit sequence of fmaf / __f*_rn / expf on its own query and
 // its cell's factors, so a row's bits do not depend on the tile, thread,
@@ -53,11 +53,24 @@
 // copies need 16-byte aligned addresses and sizes; a (P, 5, 5) factor slab
 // of cell p starts at 100 p bytes, so the factor staging does not fit it.
 //
+// Wide body (m in [65, 2048], or d > 4; m and d runtime values, one
+// instance): knm no longer fits a thread's registers nor W and U a block's
+// shared memory (2 x 4 MB at m = 1,024), and at m >= 128 the 4 m^2 FLOP a
+// row bound it (FFMA at 67 TFLOP/s: Hopper's tensor cores have no fp32 mode
+// and TF32 is ruled out). A block takes R rows of one cell, computes knm
+// into dynamic shared memory (folding the mean as it goes), then runs
+// knm W^T and knm U^T as a register-blocked tile loop, W and U streamed
+// through shared memory by cp.async in double-buffered 64 x 32 tiles
+// (kernel_common.cuh); the squares fold per 64-column chunk in a fixed
+// order. The narrow or wide instance is chosen by m and d alone, never by
+// P, S or Q, so a row's bits never depend on the launch it lands in.
+//
 // Numerics: FFMA loops, expf (not __expf), no --use_fast_math. Any m in
-// [1, 64] (template bound MMAX: m itself up to 8, then 16, 32, 64; padded
-// columns of W/U/c are staged as zeros so they are inert), any Q >= 1, d in
-// [1, 4] (template bound KD: 2 for the paper's (lon, lat), else 4 with the
-// padded dims zero); no padding contract for the caller.
+// [1, 2048] (narrow template bound MMAX: m itself up to 8, then 16, 32, 64;
+// padded columns of W/U/c are staged as zeros so they are inert), any
+// Q >= 1, any d (narrow template bound KD: 2 for the paper's (lon, lat),
+// else 4 with the padded dims zero; d > 4 takes the wide body); no padding
+// contract for the caller.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -268,6 +281,104 @@ cudaError_t launch(const float* hx, const float* z, const float* log_l, const fl
                                     stream);
 }
 
+// The wide body (m >= 65, or d > 4; m and d runtime): a block takes R rows
+// of cell p (grid (ceil(N / R), P), 4R threads), knm into shared memory,
+// then knm W^T and knm U^T by the FFMA tile loop of kernel_common.cuh with
+// W and U streamed in 64 x 32 tiles; the mean folds into the knm pass, the
+// squares into qd and sd per 64-column chunk. Per row the sequence is fixed
+// by m and d alone.
+__global__ void __launch_bounds__(128) predict_wide_kernel(
+    const float* __restrict__ hx, const float* __restrict__ z, const float* __restrict__ log_l,
+    const float* __restrict__ log_var, const float* __restrict__ w, const float* __restrict__ u,
+    const float* __restrict__ c, float* __restrict__ mean, float* __restrict__ fvar,
+    long long N, int m, int d) {
+  extern __shared__ __align__(16) float smem[];
+  const int R = blockDim.x / 4, RG = R / 4;
+  const int ld = wide_ld(m);
+  float* s_knm = smem;
+  float* s_tile = s_knm + R * ld;
+  float* s_out = s_tile + 2 * 2 * kWideTI * kWideLDW;
+  float* s_inv = s_out + 2 * R * kWideLDO;
+  const int tid = threadIdx.x, q = tid & 3, r = tid >> 2, ig = tid & 15, rg = tid >> 4;
+  const int p = blockIdx.y;
+  const long long row0 = (long long)blockIdx.x * R;
+  const int n = (int)min((long long)R, N - row0);
+  const float* wp = w + (size_t)p * m * m;
+  const float* up = u + (size_t)p * m * m;
+  const bool vec = (m & 3) == 0 && ((reinterpret_cast<uintptr_t>(w) |
+                                     reinterpret_cast<uintptr_t>(u)) & 15) == 0;
+
+  // the first tile in flight while knm is computed
+  wide_load_tile<2>(s_tile, wp, up, m, 0, 0, vec);
+  wide_stage_inv(s_inv, log_l + (size_t)p * d, d);
+  const float var = expf(log_var[p]);
+  __syncthreads();
+  const float* xrow = r < n ? hx + ((size_t)p * N + row0 + r) * d : nullptr;
+  const float mu = quad_sum(wide_knm(s_knm, ld, xrow, z + (size_t)p * m * d,
+                                     log_l + (size_t)p * d, s_inv, var, c + (size_t)p * m, m, d));
+
+  float qd = 0.f, sd = 0.f;
+  int buf = 0;
+  for (int ic = 0; ic < m; ic += kWideTI) {
+    float acc[2][4][4];
+#pragma unroll
+    for (int mat = 0; mat < 2; ++mat)
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) acc[mat][rr][ii] = 0.f;
+    for (int jt = 0; jt < m; jt += kWideTJ) {
+      cp_async_wait_all();
+      __syncthreads();  // tile (ic, jt) and the knm tile visible; the other buffer free
+      const bool more = jt + kWideTJ < m;
+      if (more || ic + kWideTI < m) {
+        wide_load_tile<2>(s_tile + (buf ^ 1) * 2 * kWideTI * kWideLDW, wp, up, m,
+                          more ? ic : ic + kWideTI, more ? jt + kWideTJ : 0, vec);
+      }
+      wide_fma_tile<2>(acc, s_knm, ld, jt, s_tile + buf * 2 * kWideTI * kWideLDW, rg, RG, ig);
+      buf ^= 1;
+    }
+#pragma unroll
+    for (int mat = 0; mat < 2; ++mat)
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+          s_out[(mat * R + rg + RG * rr) * kWideLDO + ig + 16 * ii] = acc[mat][rr][ii];
+    __syncthreads();
+    const int ni = min(kWideTI, m - ic);
+    for (int i = q; i < ni; i += 4) {
+      const float lk = s_out[r * kWideLDO + i];
+      const float su = s_out[(R + r) * kWideLDO + i];
+      qd = fmaf(lk, lk, qd);
+      sd = fmaf(su, su, sd);
+    }
+  }
+  qd = quad_sum(qd);
+  sd = quad_sum(sd);
+  if (q == 0 && r < n) {
+    mean[(size_t)p * N + row0 + r] = mu;
+    fvar[(size_t)p * N + row0 + r] = __fadd_rn(__fsub_rn(var, qd), sd);
+  }
+}
+
+bool g_wide_opted[kMaxDevices];
+
+cudaError_t launch_wide(const float* hx, const float* z, const float* log_l, const float* log_var,
+                        const float* w, const float* u, const float* c, float* mean, float* fvar,
+                        int P, int S, int Q, int m, int d, int device, cudaStream_t stream) {
+  cudaError_t err = wide_opt_in(predict_wide_kernel, g_wide_opted, device);
+  if (err != cudaSuccess) return err;
+  const long long N = (long long)S * Q;
+  const int R = wide_rows(m);
+  const long long blocks = (N + R - 1) / R;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, P);
+  predict_wide_kernel<<<grid, 4 * R, 4 * wide_smem_floats(m, 2), stream>>>(
+      hx, z, log_l, log_var, w, u, c, mean, fvar, N, m, d);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Plain C entry (loaded with ctypes). Every pointer is a CUDA device
@@ -278,8 +389,7 @@ extern "C" int psvgp_posterior_predict(
     const void* hx, const void* z, const void* log_l, const void* log_var,
     const void* w, const void* u, const void* c, void* mean, void* fvar,
     int P, int S, int Q, int m, int d, int device, void* stream) {
-  if (P < 1 || S < 1 || Q < 1 || m < 1 || m > 64 || d < 1 || d > kMaxD ||
-      S > 65535 || P > 65535) {
+  if (P < 1 || S < 1 || Q < 1 || m < 1 || m > kWideMaxM || d < 1 || S > 65535 || P > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -294,11 +404,17 @@ extern "C" int psvgp_posterior_predict(
   auto* mf = static_cast<float*>(mean);
   auto* ff = static_cast<float*>(fvar);
   auto st = static_cast<cudaStream_t>(stream);
-  err = with_mmax(m, [&](auto mmax) {
-    constexpr int M = decltype(mmax)::value;
-    return d == 2 ? launch<M, 2>(args, zf, lf, vf, wf, uf, cf, mf, ff, P, S, Q, m, d, st)
-                  : launch<M, kMaxD>(args, zf, lf, vf, wf, uf, cf, mf, ff, P, S, Q, m, d, st);
-  });
+  // the instance is chosen by m and d alone
+  static_assert(kPredictWideMinM <= 65, "the narrow instances end at MMAX = 64");
+  if (m >= kPredictWideMinM || d > kMaxD) {
+    err = launch_wide(args, zf, lf, vf, wf, uf, cf, mf, ff, P, S, Q, m, d, device, st);
+  } else {
+    err = with_mmax<64>(m, [&](auto mmax) {
+      constexpr int M = decltype(mmax)::value;
+      return d == 2 ? launch<M, 2>(args, zf, lf, vf, wf, uf, cf, mf, ff, P, S, Q, m, d, st)
+                    : launch<M, kMaxD>(args, zf, lf, vf, wf, uf, cf, mf, ff, P, S, Q, m, d, st);
+    });
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

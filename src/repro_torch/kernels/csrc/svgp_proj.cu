@@ -5,58 +5,68 @@
 //                           O(B m^2) hot path (entry psvgp_svgp_projection);
 //   rbf_cross_cov_pallas    src/repro/kernels/rbf.py:46 -- K(X, Z) alone
 //                           (entry psvgp_rbf_cross_cov).
-// Both are this one __global__ body with a cell axis, so ONE launch covers
-// every cell's B rows of a training step (the JAX package vmaps the Pallas
-// kernel over the cells instead). Per row, with its cell's z/l and W staged
-// in shared memory:
+// Both take a cell axis, so ONE launch covers every cell's B rows (the JAX
+// package vmaps the Pallas kernels over the cells instead). Per row, with
+// its cell's z/l and W:
 //   knm_j  = sigma^2 * exp(-0.5 * sum_k (x_k/l_k - z_jk/l_k)^2)   explicit difference
 //   lk_t_i = sum_j W_ij knm_j        (W = Lmm^{-1}, lower triangular)
 //   q_diag = sum_i lk_t_i^2
-// The rbf entry stops after knm, which is the same sequence of operations
-// as the projection's, so the two entries' knm agree bitwise. knm never
-// needs to be read back: the projection keeps it in registers and writes
-// it once (the JAX signature returns it; the ELBO drops it).
+// Every body runs the same sequence of operations per knm element (x/l and
+// z/l by __fmul_rn, __fsub_rn, r2 by fmaf in k order, expf), so the two
+// entries' knm agree bitwise at every m and d.
 //
-// What bounds it: at the training step's shape (P = 400, B = 32, m = 5,
-// d = 2) a launch reads ~0.16 MB, writes ~0.56 MB and does ~1.4 MFLOP:
-// bytes-bound at ~0.2 us on paper, so the launch and the latency of the
-// staging round trip bound it. At 65,536 rows of one cell it writes
-// 2.6 MB, and the bytes and how the stores fall on sectors bound it.
+// The projection has two bodies, chosen by m and d alone:
 //
-// Design: one row per thread, a block's rows one contiguous range of the
-// flat (P*B) rows. At small B a block packs C whole cells (4 cells x 32
-// rows in a 128-thread block at B = 32: 100 blocks); at large B it takes a
-// tile of one cell's rows (512 blocks of 128 rows at B = 65,536). The
-// block stages its cells' factors once, with one barrier: the rows' x are
-// loaded first and stay in flight across it, W goes to shared memory by
-// cp.async (16-byte copies where m is a multiple of 4, else 4-byte), and
-// z/l (by the thread that stages it), 1/l and sigma^2 (by every thread)
-// come from the inputs the thread loads itself. knm and lk_t are (P, B, m), and a block's rows
-// form one contiguous slab of (rows x m) floats in each. A launch of
+// Narrow (m <= 16, d <= 4; templates on m and d). What bounds it: at the
+// training step's shape (P = 400, B = 32, m = 5, d = 2) a launch reads
+// ~0.16 MB, writes ~0.56 MB and does ~1.4 MFLOP: bytes-bound at ~0.2 us on
+// paper, so the launch and the latency of the staging round trip bound it.
+// One row per thread, a block's rows one contiguous range of the flat (P*B)
+// rows. At small B a block packs C whole cells (4 cells x 32 rows in a
+// 128-thread block at B = 32: 100 blocks); at large B it takes a tile of
+// one cell's rows (512 blocks of 128 rows at B = 65,536). The block stages
+// its cells' factors once, with one barrier: the rows' x are loaded first
+// and stay in flight across it, W goes to shared memory by cp.async
+// (16-byte copies where m is a multiple of 4, else 4-byte), and z/l (by the
+// thread that stages it), 1/l and sigma^2 (by every thread) come from the
+// inputs the thread loads itself. knm and lk_t are (P, B, m), and a block's
+// rows form one contiguous slab of (rows x m) floats in each. A launch of
 // 65,536 rows or more is bound by its stores: each thread puts its row in
 // shared memory (odd row stride: no bank conflicts) and, after a second
 // barrier, the block stores the slab with consecutive threads on
 // consecutive addresses, in float4 from the slab's first 16-byte boundary
-// and in single floats at its unaligned head and tail. A smaller launch
-// (the training step's 12,800 rows) is bound by latency: there a thread
-// stores its row straight from registers as each value is ready, so the
-// stores overlap the rest of the row and no barrier waits for them (both
-// paths measured at both shapes on the H100: PERF.md). q_diag is one
-// coalesced store per row. No atomics: every output element is written
-// once by one thread, so the kernel is deterministic, and which store
-// path a launch takes changes no value.
+// and in single floats at its unaligned head and tail. A smaller launch is
+// bound by latency: there a thread stores its row straight from registers
+// as each value is ready (both paths measured on the H100: PERF.md).
 //
-// Why not tensor cores or TMA: m = 5, and fp32 is required with no TF32
-// (the serving path's fitted mean cancels to ~1e-3 relative, and the ELBO
-// takes the same rule). TMA bulk copies need 16-byte aligned addresses and
-// sizes; cell p's (5, 5) W starts at 100 p bytes and a slab of the outputs
-// at 20 g bytes, so neither the staging nor the stores fit it.
+// Wide (m in [17, 2048], or d > 4; m and d runtime): past m = 64 knm no
+// longer fits a thread's registers nor W a block's shared memory, and at
+// m = 25..64 it already beats the narrow body's padded MMAX = 32/64
+// instances (PERF.md); at m >= 128 the 2 m^2 FLOP a row bound it (FFMA at
+// 67 TFLOP/s: no tensor cores, since Hopper's have no fp32 mode and TF32
+// is ruled out). A block takes R rows of one cell, computes knm into
+// shared memory, and runs knm W^T as a register-blocked tile loop, W
+// streamed through shared memory by cp.async in double-buffered 64 x 32
+// tiles (kernel_common.cuh); W's tiles above the diagonal are skipped.
+//
+// K(X, Z) has its own body: an elementwise pass bound by its stores, 4
+// consecutive outputs a thread per step (one float4 store), consecutive
+// threads on consecutive addresses, z/l staged (one barrier) only in a
+// launch past one wave; any m and d.
+//
+// No atomics anywhere: every output element is written once by one thread,
+// so the kernels are deterministic, and a row's bits do not depend on its
+// block, packing or store path.
+//
+// Why not tensor cores or TMA: fp32 is required with no TF32 (the serving
+// path's fitted mean cancels to ~1e-3 relative, and the ELBO takes the same
+// rule). TMA bulk copies need 16-byte aligned addresses and sizes; cell p's
+// (5, 5) W starts at 100 p bytes and a slab of the outputs at 20 g bytes,
+// so neither the staging nor the stores fit it.
 //
 // Numerics: FFMA loops, expf (not __expf), no --use_fast_math. Any m in
-// [1, 64] (template bound MMAX: m itself up to 8, then 16, 32, 64; W's
-// padded columns are staged as zeros, so the padded columns of knm are
-// inert), any B >= 1, d in [1, 4] (template bound KD: 2 for the paper's
-// (lon, lat), else 4 with the padded dims zero); no padding contract.
+// [1, 2048] for the projection and any m for K(X, Z); any B >= 1; any d;
+// no padding contract.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -78,9 +88,9 @@ __host__ __device__ constexpr int max_rows() {
 }
 
 // cells a block stages at most: as many as fit kStageFloats, at least one
-template <int MMAX, bool kProject>
+template <int MMAX>
 __host__ __device__ constexpr int max_cells() {
-  constexpr int per_cell = (kProject ? MMAX * row_stride<MMAX>() : 0) + MMAX * kMaxD;
+  constexpr int per_cell = MMAX * row_stride<MMAX>() + MMAX * kMaxD;
   constexpr int fit = kStageFloats / per_cell;
   return fit < 1 ? 1 : (fit > max_rows<MMAX>() ? max_rows<MMAX>() : fit);
 }
@@ -104,24 +114,24 @@ __device__ __forceinline__ void store_slab(float* __restrict__ dst, const float*
   for (int e = head + 4 * nvec + tid; e < count; e += T) dst[e] = at(e);
 }
 
-template <int MMAX, int KD, bool kProject>
+template <int MMAX, int KD>
 __global__ void __launch_bounds__(max_rows<MMAX>()) projection_kernel(
     const float* __restrict__ x,        // (P, B, d)
     const float* __restrict__ z,        // (P, m, d)
     const float* __restrict__ log_l,    // (P, d)
     const float* __restrict__ log_var,  // (P,)
-    const float* __restrict__ w,        // (P, m, m); unused without kProject
+    const float* __restrict__ w,        // (P, m, m)
     float* __restrict__ knm,            // (P, B, m)
-    float* __restrict__ lk_t,           // (P, B, m); unused without kProject
-    float* __restrict__ q_diag,         // (P, B);    unused without kProject
+    float* __restrict__ lk_t,           // (P, B, m)
+    float* __restrict__ q_diag,         // (P, B)
     int P, int B, int m, int d, int cells, int tiles, int R, bool slab) {
-  constexpr int CMAX = max_cells<MMAX, kProject>();
+  constexpr int CMAX = max_cells<MMAX>();
   constexpr int LD = row_stride<MMAX>();
   constexpr int kOut = max_rows<MMAX>() * (MMAX + 1);
-  __shared__ __align__(16) float s_w[kProject ? CMAX * MMAX * LD : 1];
+  __shared__ __align__(16) float s_w[CMAX * MMAX * LD];
   __shared__ __align__(16) float s_zs[CMAX * MMAX * kMaxD];  // z / l, zero-padded
   __shared__ __align__(16) float s_knm[kOut];
-  __shared__ __align__(16) float s_lk[kProject ? kOut : 1];
+  __shared__ __align__(16) float s_lk[kOut];
 
   // the block's rows: [g0, g0 + n) of the flat (P*B) rows, cells [p0, p0 + nc)
   const int tid = threadIdx.x;
@@ -162,7 +172,7 @@ __global__ void __launch_bounds__(max_rows<MMAX>()) projection_kernel(
 
   // 2. the block's cells' factors: W by cp.async (zeros past column m),
   // z/l through registers; this row's 1/l and sigma^2
-  if (kProject) stage_matrices<MMAX, LD>(s_w, w + (size_t)p0 * m * m, nc, m);
+  stage_matrices<MMAX, LD>(s_w, w + (size_t)p0 * m * m, nc, m);
   for (int i = tid; i < nc * MMAX * kMaxD; i += blockDim.x) {
     const int cs = i / (MMAX * kMaxD), e = i % (MMAX * kMaxD);
     const int j = e / kMaxD, k = e % kMaxD;
@@ -175,7 +185,7 @@ __global__ void __launch_bounds__(max_rows<MMAX>()) projection_kernel(
 #pragma unroll
   for (int k = 0; k < KD; ++k) inv_l[k] = k < d ? expf(-log_l[(size_t)p * d + k]) : 0.f;
   const float var = expf(log_var[p]);
-  if (kProject) cp_async_wait_all();
+  cp_async_wait_all();
   __syncthreads();
 
   // 3. the row's outputs in registers, then to the outputs: straight from
@@ -206,34 +216,32 @@ __global__ void __launch_bounds__(max_rows<MMAX>()) projection_kernel(
       }
       kn[j] = kj;
     }
-    if (kProject) {
-      // rows of W up to m: unrolled where MMAX = m (m <= 8), else by 4
-      // (each row's sum over j is a dependent chain: rows side by side hide it)
-      constexpr int kUnrollRows = MMAX <= 8 ? MMAX : 4;
-      const float* wc = s_w + slot * MMAX * LD;
-      float qd = 0.f;
+    // rows of W up to m: unrolled where MMAX = m (m <= 8), else by 4
+    // (each row's sum over j is a dependent chain: rows side by side hide it)
+    constexpr int kUnrollRows = MMAX <= 8 ? MMAX : 4;
+    const float* wc = s_w + slot * MMAX * LD;
+    float qd = 0.f;
 #pragma unroll kUnrollRows
-      for (int i = 0; i < (MMAX <= 8 ? MMAX : m); ++i) {
-        float lk = 0.f;
+    for (int i = 0; i < (MMAX <= 8 ? MMAX : m); ++i) {
+      float lk = 0.f;
 #pragma unroll
-        for (int j = 0; j < MMAX; ++j) lk = fmaf(wc[i * LD + j], kn[j], lk);
-        if (slab) {
-          s_lk[tid * stride + i] = lk;
-        } else {
-          lk_t[g * m + i] = lk;
-        }
-        qd = fmaf(lk, lk, qd);
+      for (int j = 0; j < MMAX; ++j) lk = fmaf(wc[i * LD + j], kn[j], lk);
+      if (slab) {
+        s_lk[tid * stride + i] = lk;
+      } else {
+        lk_t[g * m + i] = lk;
       }
-      q_diag[g] = qd;
+      qd = fmaf(lk, lk, qd);
     }
+    q_diag[g] = qd;
   }
   if (!slab) return;
   __syncthreads();
   store_slab(knm + g0 * m, s_knm, n * m, m, stride);
-  if (kProject) store_slab(lk_t + g0 * m, s_lk, n * m, m, stride);
+  store_slab(lk_t + g0 * m, s_lk, n * m, m, stride);
 }
 
-template <int MMAX, int KD, bool kProject>
+template <int MMAX, int KD>
 cudaError_t launch_m(const float* x, const float* z, const float* log_l,
                      const float* log_var, const float* w, float* knm, float* lk_t,
                      float* q_diag, int P, int B, int m, int d, cudaStream_t stream) {
@@ -241,7 +249,7 @@ cudaError_t launch_m(const float* x, const float* z, const float* log_l,
   int cells = 1, tiles = 1, R = B;
   long long blocks;
   if (B <= rows) {  // pack whole cells
-    cells = rows / B < max_cells<MMAX, kProject>() ? rows / B : max_cells<MMAX, kProject>();
+    cells = rows / B < max_cells<MMAX>() ? rows / B : max_cells<MMAX>();
     if (cells > P) cells = P;
     blocks = (P + cells - 1) / cells;
   } else {  // balanced tiles of at most `rows` rows of one cell
@@ -252,26 +260,291 @@ cudaError_t launch_m(const float* x, const float* z, const float* log_l,
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   const int threads = ((tiles == 1 ? cells * B : R) + 31) / 32 * 32;
   const bool slab = (long long)P * B >= kSlabRows;
-  projection_kernel<MMAX, KD, kProject><<<(unsigned)blocks, threads, 0, stream>>>(
+  projection_kernel<MMAX, KD><<<(unsigned)blocks, threads, 0, stream>>>(
       x, z, log_l, log_var, w, knm, lk_t, q_diag, P, B, m, d, cells, tiles, R, slab);
   return cudaSuccess;
 }
 
-template <bool kProject>
-cudaError_t launch(const float* x, const float* z, const float* log_l, const float* log_var,
-                   const float* w, float* knm, float* lk_t, float* q_diag,
-                   int P, int B, int m, int d, cudaStream_t stream) {
-  return with_mmax(m, [&](auto mmax) {
+// The wide body (m >= 17, or d > 4; m and d runtime): a block takes R rows of
+// cell p (grid (ceil(B / R), P), 4R threads), knm into shared memory, then
+// knm W^T by the FFMA tile loop of kernel_common.cuh with W streamed in
+// 64 x 32 tiles. W is lower triangular: the tiles of a 64-column chunk
+// past its last column are skipped (their terms are zeros, so no bit
+// changes). knm is stored coalesced from its tile, lk_t from each chunk's
+// slab, and q_diag folds each chunk's squares in a fixed column order.
+__global__ void __launch_bounds__(128) projection_wide_kernel(
+    const float* __restrict__ x, const float* __restrict__ z, const float* __restrict__ log_l,
+    const float* __restrict__ log_var, const float* __restrict__ w, float* __restrict__ knm,
+    float* __restrict__ lk_t, float* __restrict__ q_diag, int B, int m, int d) {
+  extern __shared__ __align__(16) float smem[];
+  const int R = blockDim.x / 4, RG = R / 4, T = blockDim.x;
+  const int ld = wide_ld(m);
+  float* s_knm = smem;
+  float* s_tile = s_knm + R * ld;
+  float* s_out = s_tile + 2 * kWideTI * kWideLDW;
+  float* s_inv = s_out + R * kWideLDO;
+  const int tid = threadIdx.x, q = tid & 3, r = tid >> 2, ig = tid & 15, rg = tid >> 4;
+  const int p = blockIdx.y;
+  const int b0 = blockIdx.x * R;
+  const int n = min(R, B - b0);
+  const long long g0 = (long long)p * B + b0;  // the block's first row of the flat (P*B)
+  const float* wp = w + (size_t)p * m * m;
+  const bool vec = (m & 3) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+
+  wide_load_tile<1>(s_tile, wp, wp, m, 0, 0, vec);
+  wide_stage_inv(s_inv, log_l + (size_t)p * d, d);
+  const float var = expf(log_var[p]);
+  __syncthreads();
+  const float* xrow = r < n ? x + (size_t)(g0 + r) * d : nullptr;
+  wide_knm(s_knm, ld, xrow, z + (size_t)p * m * d, log_l + (size_t)p * d, s_inv, var, nullptr,
+           m, d);
+
+  float qd = 0.f;
+  int buf = 0;
+  for (int ic = 0; ic < m; ic += kWideTI) {
+    const int jend = min(m, ic + kWideTI);  // W_ij = 0 for j > i
+    float acc[1][4][4];
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) acc[0][rr][ii] = 0.f;
+    for (int jt = 0; jt < jend; jt += kWideTJ) {
+      cp_async_wait_all();
+      __syncthreads();  // tile (ic, jt) and the knm tile visible; the other buffer free
+      const bool more = jt + kWideTJ < jend;
+      if (more || ic + kWideTI < m) {
+        wide_load_tile<1>(s_tile + (buf ^ 1) * kWideTI * kWideLDW, wp, wp, m,
+                          more ? ic : ic + kWideTI, more ? jt + kWideTJ : 0, vec);
+      }
+      wide_fma_tile<1>(acc, s_knm, ld, jt, s_tile + buf * kWideTI * kWideLDW, rg, RG, ig);
+      buf ^= 1;
+    }
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+        s_out[(rg + RG * rr) * kWideLDO + ig + 16 * ii] = acc[0][rr][ii];
+    __syncthreads();
+    const int ni = min(kWideTI, m - ic);
+    for (int i = q; i < ni; i += 4) {
+      const float lk = s_out[r * kWideLDO + i];
+      qd = fmaf(lk, lk, qd);
+    }
+    // the chunk's lk_t: each row's ni columns, consecutive threads on
+    // consecutive addresses
+    for (int e = tid; e < R * kWideTI; e += T) {
+      const int rr = e / kWideTI, i = e % kWideTI;
+      if (rr < n && i < ni) lk_t[(size_t)(g0 + rr) * m + ic + i] = s_out[rr * kWideLDO + i];
+    }
+  }
+  qd = quad_sum(qd);
+  if (q == 0 && r < n) q_diag[g0 + r] = qd;
+  // knm: the block's n rows are one contiguous run of n * m floats
+  float* dst = knm + (size_t)g0 * m;
+  for (int e = tid; e < n * m; e += T) {
+    const int rr = e / m;
+    dst[e] = s_knm[rr * ld + e - rr * m];
+  }
+}
+
+bool g_wide_opted[kMaxDevices];
+
+cudaError_t launch_wide(const float* x, const float* z, const float* log_l, const float* log_var,
+                        const float* w, float* knm, float* lk_t, float* q_diag, int P, int B,
+                        int m, int d, int device, cudaStream_t stream) {
+  const cudaError_t err = wide_opt_in(projection_wide_kernel, g_wide_opted, device);
+  if (err != cudaSuccess) return err;
+  const int R = wide_rows(m);
+  const dim3 grid((unsigned)((B + R - 1) / R), P);
+  projection_wide_kernel<<<grid, 4 * R, 4 * wide_smem_floats(m, 1), stream>>>(
+      x, z, log_l, log_var, w, knm, lk_t, q_diag, B, m, d);
+  return cudaSuccess;
+}
+
+cudaError_t launch_projection(const float* x, const float* z, const float* log_l,
+                              const float* log_var, const float* w, float* knm, float* lk_t,
+                              float* q_diag, int P, int B, int m, int d, int device,
+                              cudaStream_t stream) {
+  // the instance is chosen by m and d alone
+  static_assert(kProjectionWideMinM <= 17, "the narrow instances end at MMAX = 16");
+  if (m >= kProjectionWideMinM || d > kMaxD) {
+    return launch_wide(x, z, log_l, log_var, w, knm, lk_t, q_diag, P, B, m, d, device, stream);
+  }
+  return with_mmax<16>(m, [&](auto mmax) {
     constexpr int M = decltype(mmax)::value;
-    return d == 2 ? launch_m<M, 2, kProject>(x, z, log_l, log_var, w, knm, lk_t, q_diag,
-                                             P, B, m, d, stream)
-                  : launch_m<M, kMaxD, kProject>(x, z, log_l, log_var, w, knm, lk_t, q_diag,
-                                                 P, B, m, d, stream);
+    return d == 2 ? launch_m<M, 2>(x, z, log_l, log_var, w, knm, lk_t, q_diag, P, B, m, d, stream)
+                  : launch_m<M, kMaxD>(x, z, log_l, log_var, w, knm, lk_t, q_diag, P, B, m, d,
+                                       stream);
   });
 }
 
-int check_args(int P, int B, int m, int d, int device) {
-  if (P < 1 || P > 65535 || B < 1 || m < 1 || m > 64 || d < 1 || d > kMaxD) {
+// K(X, Z) alone is a store-bound elementwise pass over cell p's flat (B * m)
+// outputs (grid (tiles, P)). Each thread takes groups of 4 consecutive
+// elements, consecutive threads on consecutive groups, and stores a group
+// as one float4 where the cell's run is 16-byte aligned (else 4 floats):
+// every store coalesced, no slab. A row's x/l stays in registers across
+// the elements of its row; where m is a multiple of 4 a group lies in one
+// row and takes no per-element row check. z/l: a launch past one wave of
+// the card is bound by issue, so its blocks stage z/l in dynamic shared
+// memory once (one barrier; 16 KB at most) and read it back as float4; a
+// smaller one is bound by latency and computes z/l from z (L1-resident)
+// where it is used, with no barrier and no shared memory (the two are
+// separate instances: a runtime switch between them cost the small launch
+// ~0.2 us on the H100, PERF.md). Every element runs the projection's sequence of
+// operations, so the two entries' knm agree bitwise whichever path it
+// takes. No m x m factor is staged: m has no ceiling.
+// KD: 2 or 4 (1/l and x in registers), or 0 (any d, 1/l recomputed).
+constexpr int kRbfStage = 4096;  // floats of z/l a block stages at most
+constexpr int kRbfThreads = 256;
+constexpr long long kOneWaveThreads = 270336;  // 132 SMs x 2,048 threads
+
+// whether a launch stages z/l: past one wave (groups > 1) where it fits
+__host__ __device__ inline bool rbf_staged(int kd, int groups, int m) {
+  return kd > 0 && groups > 1 && (long long)m * kd <= kRbfStage;
+}
+
+template <int KD, bool kStaged>
+__global__ void __launch_bounds__(kRbfThreads) rbf_kernel(
+    const float* __restrict__ x, const float* __restrict__ z, const float* __restrict__ log_l,
+    const float* __restrict__ log_var, float* __restrict__ knm, int B, int m, int d, int groups) {
+  extern __shared__ __align__(16) float s_zs[];  // m * KR floats where staged
+  constexpr int KR = KD > 0 ? KD : 1;
+  const int p = blockIdx.y, T = blockDim.x, tid = threadIdx.x;
+  const long long nel = (long long)B * m;
+  const float* lp = log_l + (size_t)p * d;
+  const float* xp = x + (size_t)p * B * d;
+  const float* zp = z + (size_t)p * m * d;
+  float* out = knm + (size_t)p * nel;
+  float inv_l[KR];
+#pragma unroll
+  for (int k = 0; k < KR; ++k) inv_l[k] = (KD > 0 && k < d) ? expf(-lp[k]) : 0.f;
+  const float var = expf(log_var[p]);
+  constexpr bool staged = kStaged && KD > 0;
+  if (staged) {
+    for (int i = tid; i < m * KR; i += T) {
+      const int j = i / KR, k = i % KR;
+      s_zs[i] = k < d ? __fmul_rn(zp[(size_t)j * d + k], expf(-lp[k])) : 0.f;
+    }
+    __syncthreads();
+  }
+  float xs[KR];  // the current row's x/l
+  // one element: the projection's sequence on the row's x/l and z_j / l
+  auto element = [&](long long b, int j) {
+    float r2 = 0.f;
+    if (KD > 0) {
+#pragma unroll
+      for (int k = 0; k < KR; ++k) {
+        if (k < d) {
+          const float zs =
+              staged ? s_zs[j * KR + k] : __fmul_rn(zp[(size_t)j * d + k], inv_l[k]);
+          const float df = __fsub_rn(xs[k], zs);
+          r2 = fmaf(df, df, r2);
+        }
+      }
+    } else {
+      const float* xr = xp + (size_t)b * d;
+      for (int k = 0; k < d; ++k) {
+        const float il = expf(-lp[k]);
+        const float df = __fsub_rn(__fmul_rn(xr[k], il), __fmul_rn(zp[(size_t)j * d + k], il));
+        r2 = fmaf(df, df, r2);
+      }
+    }
+    return __fmul_rn(var, expf(__fmul_rn(-0.5f, r2)));
+  };
+  const bool vec = (nel & 3) == 0 && (reinterpret_cast<uintptr_t>(knm) & 15) == 0;
+  for (int g = 0; g < groups; ++g) {
+    const long long e0 = 4 * (((long long)blockIdx.x * groups + g) * T + tid);
+    if (e0 >= nel) break;
+    long long b;
+    int j;
+    if (nel <= 0xffffffffLL) {
+      const unsigned q = (unsigned)e0 / (unsigned)m;
+      b = q;
+      j = (int)((unsigned)e0 - q * (unsigned)m);
+    } else {
+      b = e0 / m;
+      j = (int)(e0 - b * m);
+    }
+    auto load_row = [&]() {
+#pragma unroll
+      for (int k = 0; k < KR; ++k)
+        xs[k] = (KD > 0 && k < d) ? __fmul_rn(xp[(size_t)b * d + k], inv_l[k]) : 0.f;
+    };
+    load_row();
+    float v[4];
+    if (KD > 0 && staged && (m & 3) == 0) {
+      // the group is columns j .. j+3 of one row; their z/l as KR float4
+      float zz[4 * KR];
+#pragma unroll
+      for (int q4 = 0; q4 < KR; ++q4) {
+        const float4 f = reinterpret_cast<const float4*>(s_zs + j * KR)[q4];
+        zz[4 * q4] = f.x;
+        zz[4 * q4 + 1] = f.y;
+        zz[4 * q4 + 2] = f.z;
+        zz[4 * q4 + 3] = f.w;
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        float r2 = 0.f;
+#pragma unroll
+        for (int k = 0; k < KR; ++k) {
+          if (k < d) {
+            const float df = __fsub_rn(xs[k], zz[t * KR + k]);
+            r2 = fmaf(df, df, r2);
+          }
+        }
+        v[t] = __fmul_rn(var, expf(__fmul_rn(-0.5f, r2)));
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        v[t] = e0 + t < nel ? element(b, j) : 0.f;
+        if (++j == m && t < 3) {
+          j = 0;
+          ++b;
+          if (e0 + t + 1 < nel) load_row();
+        }
+      }
+    }
+    if (vec) {
+      *reinterpret_cast<float4*>(out + e0) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (e0 + t < nel) out[e0 + t] = v[t];
+    }
+  }
+}
+
+cudaError_t launch_rbf(const float* x, const float* z, const float* log_l, const float* log_var,
+                       float* knm, int P, int B, int m, int d, cudaStream_t stream) {
+  // groups of 4 elements a thread: 1 while one group a thread fits one wave
+  // of the card, 4 (and z/l staged) past it; the bits do not depend on it
+  const long long nel = (long long)B * m;
+  const long long ngroups = (nel + 3) / 4;
+  const int groups = (long long)P * ngroups > kOneWaveThreads ? 4 : 1;
+  const int threads = ngroups >= kRbfThreads ? kRbfThreads : (int)((ngroups + 31) / 32 * 32);
+  const long long per_block = (long long)threads * groups;
+  const long long blocks = (ngroups + per_block - 1) / per_block;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, P);
+  auto go = [&](auto kernel, int kd) {
+    kernel<<<grid, threads, rbf_staged(kd, groups, m) ? 4 * m * kd : 0, stream>>>(
+        x, z, log_l, log_var, knm, B, m, d, groups);
+  };
+  if (d == 2) {
+    go(rbf_staged(2, groups, m) ? rbf_kernel<2, true> : rbf_kernel<2, false>, 2);
+  } else if (d <= kMaxD) {
+    go(rbf_staged(kMaxD, groups, m) ? rbf_kernel<kMaxD, true> : rbf_kernel<kMaxD, false>,
+       kMaxD);
+  } else {
+    go(rbf_kernel<0, false>, 0);
+  }
+  return cudaSuccess;
+}
+
+int check_args(int P, int B, int m, int d, int max_m, int device) {
+  if (P < 1 || P > 65535 || B < 1 || m < 1 || m > max_m || d < 1) {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaSetDevice(device);
@@ -287,13 +560,13 @@ extern "C" int psvgp_svgp_projection(
     const void* x, const void* z, const void* log_l, const void* log_var, const void* w,
     void* knm, void* lk_t, void* q_diag, int P, int B, int m, int d, int device,
     void* stream) {
-  const int err = check_args(P, B, m, d, device);
+  const int err = check_args(P, B, m, d, kWideMaxM, device);
   if (err != 0) return err;
-  const cudaError_t bad = launch<true>(
+  const cudaError_t bad = launch_projection(
       static_cast<const float*>(x), static_cast<const float*>(z),
       static_cast<const float*>(log_l), static_cast<const float*>(log_var),
       static_cast<const float*>(w), static_cast<float*>(knm), static_cast<float*>(lk_t),
-      static_cast<float*>(q_diag), P, B, m, d, static_cast<cudaStream_t>(stream));
+      static_cast<float*>(q_diag), P, B, m, d, device, static_cast<cudaStream_t>(stream));
   if (bad != cudaSuccess) return (int)bad;
   return (int)cudaGetLastError();
 }
@@ -301,13 +574,12 @@ extern "C" int psvgp_svgp_projection(
 extern "C" int psvgp_rbf_cross_cov(
     const void* x, const void* z, const void* log_l, const void* log_var, void* knm,
     int P, int B, int m, int d, int device, void* stream) {
-  const int err = check_args(P, B, m, d, device);
+  const int err = check_args(P, B, m, d, INT_MAX, device);
   if (err != 0) return err;
-  const cudaError_t bad = launch<false>(
+  const cudaError_t bad = launch_rbf(
       static_cast<const float*>(x), static_cast<const float*>(z),
-      static_cast<const float*>(log_l), static_cast<const float*>(log_var), nullptr,
-      static_cast<float*>(knm), nullptr, nullptr, P, B, m, d,
-      static_cast<cudaStream_t>(stream));
+      static_cast<const float*>(log_l), static_cast<const float*>(log_var),
+      static_cast<float*>(knm), P, B, m, d, static_cast<cudaStream_t>(stream));
   if (bad != cudaSuccess) return (int)bad;
   return (int)cudaGetLastError();
 }

@@ -4,10 +4,10 @@ The rule is the tensor's device and nothing else: a CPU tensor goes to the
 plain PyTorch version (``kernels/ref.py``); a CUDA tensor launches the
 kernel (``kernels/predict.py``, ``svgp_proj.py``, ``rbf.py``) or raises —
 there is no fallback. Unlike the JAX package's ``repro.kernels.ops`` there
-is no padding here: the kernels take any m <= 64 and any row count >= 1 as
-they are. Every entry takes the JAX package's single-model signature and,
-with a leading cell axis P on every argument, the cell-axis one that runs
-all P cells in one launch.
+is no padding here: the kernels take any m up to ``predict.MAX_M`` (2,048;
+K(X, Z) any m), any d and any row count >= 1 as they are. Every entry takes
+the JAX package's single-model signature and, with a leading cell axis P on
+every argument, the cell-axis one that runs all P cells in one launch.
 """
 from __future__ import annotations
 
@@ -43,12 +43,20 @@ def _on_cuda(x: torch.Tensor) -> bool:
 
 
 def posterior_predict(x, z, log_lengthscale, log_variance, w, u, c, *, cov_fn=None):
-    """x (Q, d) against one model -> (mean (Q,), fvar (Q,)), fvar
-    un-clamped and without noise (callers own both)."""
+    """x (Q, d) against one model -> (mean (Q,), fvar (Q,)), or with a cell
+    axis x (P, Q, d) against P-stacked factors -> (P, Q) pairs in one launch
+    on CUDA; fvar un-clamped and without noise (callers own both)."""
     require_rbf(cov_fn)
-    if _on_cuda(x):
-        return predict.posterior_predict(x, z, log_lengthscale, log_variance, w, u, c)
-    return ref.posterior_predict(x, z, log_lengthscale, log_variance, w, u, c)
+    single = _single(x)
+    if not _on_cuda(x):
+        return ref.posterior_predict(x, z, log_lengthscale, log_variance, w, u, c)
+    if single:
+        mean, fvar = predict.posterior_predict(
+            x[None], z[None], log_lengthscale[None], log_variance.reshape(1),
+            w[None], u[None], c[None],
+        )
+        return mean[0], fvar[0]
+    return predict.posterior_predict(x, z, log_lengthscale, log_variance, w, u, c)
 
 
 def posterior_predict_slots(hx, z, log_lengthscale, log_variance, w, u, c, *, cov_fn=None):

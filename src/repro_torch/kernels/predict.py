@@ -1,15 +1,20 @@
 """Wrappers of the hand-written CUDA prediction kernels (``csrc/predict.cu``).
 
-Two entries into the one kernel body, each replacing a Pallas TPU kernel
-of ``repro.kernels.predict``:
+Two entries into the kernel, each replacing a Pallas TPU kernel of
+``repro.kernels.predict``, each ONE launch over a cell axis:
 
-  posterior_predict_slots  hx (P, S, Q, d) against P-stacked factors, ONE
-                           launch for every cell's S halo blocks — replaces
+  posterior_predict_slots  hx (P, S, Q, d) against P-stacked factors, every
+                           cell's S halo blocks — replaces
                            ``posterior_predict_slots_pallas`` (the "fused"
                            lane, the production serving path);
-  posterior_predict        x (Q, d) against one model (P = S = 1) —
-                           replaces ``posterior_predict_pallas`` (the
-                           "pallas" lane).
+  posterior_predict        x (P, Q, d) against P-stacked factors, every
+                           cell's one block (S = 1) — replaces
+                           ``posterior_predict_pallas`` (the "pallas" lane,
+                           where the JAX package vmaps it over the cells).
+
+Both take any m in [1, MAX_M] and any d: m <= 64 with d <= 4 runs the
+narrow body (templates on m and d), the rest the wide body (csrc/
+predict.cu), chosen by m and d alone.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises if
@@ -23,8 +28,7 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_M = 64
-MAX_D = 4
+MAX_M = 2048  # the wide body's limit: a block's knm tile in shared memory
 MAX_GRID_YZ = 65535
 
 # kernel launches per entry; ``reset_launches`` zeroes them (chip_smoke.py
@@ -61,15 +65,9 @@ def _launch(hx, z, log_l, log_var, w, u, c) -> tuple[torch.Tensor, torch.Tensor]
     """Validate the (P, S, Q, d) problem and run one launch of the kernel."""
     if not isinstance(hx, torch.Tensor) or hx.dim() != 4:
         raise ValueError("hx must be a (P, S, Q, d) tensor")
-    device = hx.device
-    if device.type != "cuda":
-        raise ValueError(
-            f"the CUDA prediction kernel takes CUDA tensors, got {device}; "
-            "CPU tensors go to the plain versions in repro_torch.kernels.ref"
-        )
     P, S, Q, d = hx.shape
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"the kernel takes 1 <= d <= {MAX_D} input dims, got {d}")
+    if d < 1:
+        raise ValueError(f"the kernel takes d >= 1 input dims, got {d}")
     if min(P, S, Q) < 1 or P > MAX_GRID_YZ or S > MAX_GRID_YZ:
         raise ValueError(f"need 1 <= P, S <= {MAX_GRID_YZ} and Q >= 1, got {(P, S, Q)}")
     if z.dim() != 3:
@@ -77,6 +75,12 @@ def _launch(hx, z, log_l, log_var, w, u, c) -> tuple[torch.Tensor, torch.Tensor]
     m = z.shape[1]
     if not 1 <= m <= MAX_M:
         raise ValueError(f"the kernel takes 1 <= m <= {MAX_M} inducing points, got {m}")
+    device = hx.device
+    if device.type != "cuda":
+        raise ValueError(
+            f"the CUDA prediction kernel takes CUDA tensors, got {device}; "
+            "CPU tensors go to the plain versions in repro_torch.kernels.ref"
+        )
     check_tensor("hx", hx, (P, S, Q, d), device)
     check_tensor("z", z, (P, m, d), device)
     check_tensor("log_lengthscale", log_l, (P, d), device)
@@ -107,13 +111,11 @@ def posterior_predict_slots(hx, z, log_lengthscale, log_variance, w, u, c):
 
 
 def posterior_predict(x, z, log_lengthscale, log_variance, w, u, c):
-    """x (Q, d); z (m, d); log_lengthscale (d,); log_variance (); w/u
-    (m, m); c (m,) -> (mean, fvar) (Q,), fvar un-clamped."""
-    if not isinstance(x, torch.Tensor) or x.dim() != 2 or z.dim() != 2:
-        raise ValueError("x must be (Q, d) and z (m, d)")
-    mean, fvar = _launch(
-        x[None, None], z[None], log_lengthscale[None], log_variance.reshape(1),
-        w[None], u[None], c[None],
-    )
+    """x (P, Q, d) against P-stacked factors z (P, m, d), log_lengthscale
+    (P, d), log_variance (P,), w/u (P, m, m), c (P, m) -> (mean, fvar)
+    (P, Q), fvar un-clamped. One launch over every cell."""
+    if not isinstance(x, torch.Tensor) or x.dim() != 3:
+        raise ValueError("x must be a (P, Q, d) tensor")
+    mean, fvar = _launch(x[:, None], z, log_lengthscale, log_variance, w, u, c)
     LAUNCHES["posterior_predict"] += 1
-    return mean[0, 0], fvar[0, 0]
+    return mean[:, 0], fvar[:, 0]

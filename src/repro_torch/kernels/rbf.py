@@ -3,9 +3,10 @@
 
 Replaces the Pallas TPU kernel ``rbf_cross_cov_pallas``
 (``repro.kernels.rbf``): K(X, Z) with a cell axis, x (P, B, d) against
-z (P, m, d) -> (P, B, m) in ONE launch. It is the first half of the
-projection kernel's body. As in the JAX package, only
-``ops.rbf_cross_cov`` reaches it.
+z (P, m, d) -> (P, B, m) in ONE launch, at any m and d. Its body is an
+elementwise pass of its own, with the projection's sequence of operations
+per element, so the two kernels' knm agree bitwise. As in the JAX package,
+only ``ops.rbf_cross_cov`` reaches it.
 
 Same contract as ``kernels/svgp_proj.py``: CUDA tensors only, checked,
 outputs from ``torch.empty``, the current stream, a raise on a failed
@@ -19,6 +20,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.predict import device_index
 from repro_torch.kernels.svgp_proj import check_problem
 
+MAX_M = 2**31 - 1  # no m x m factor is staged: m is bounded by the C int only
+
 LAUNCHES = {"rbf_cross_cov": 0}
 
 
@@ -30,7 +33,7 @@ def reset_launches() -> None:
 def rbf_cross_cov(x, z, log_lengthscale, log_variance):
     """x (P, B, d); z (P, m, d); log_lengthscale (P, d); log_variance (P,)
     -> knm (P, B, m). One launch."""
-    device, P, B, m, d = check_problem(x, z, log_lengthscale, log_variance)
+    device, P, B, m, d = check_problem(x, z, log_lengthscale, log_variance, MAX_M)
     knm = torch.empty((P, B, m), dtype=torch.float32, device=device)
     rc = build.library().psvgp_rbf_cross_cov(
         x.data_ptr(), z.data_ptr(), log_lengthscale.data_ptr(), log_variance.data_ptr(),

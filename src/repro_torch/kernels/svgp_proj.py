@@ -1,12 +1,18 @@
 """Wrapper of the hand-written CUDA ELBO-projection kernel (``csrc/svgp_proj.cu``).
 
 Replaces the Pallas TPU kernel ``svgp_projection_pallas``
-(``repro.kernels.svgp_proj``) on the training path: ONE launch computes,
-for every cell p and mini-batch row b,
+(``repro.kernels.svgp_proj``) on the training path, at any m in [1, MAX_M]
+and any d: ONE launch computes, for every cell p and mini-batch row b,
 
     knm    (P, B, m)  K(x_pb, Z_p)
     lk_t   (P, B, m)  knm @ W_p^T        (W_p = Lmm_p^{-1})
     q_diag (P, B)     ||lk_t||^2 per row
+
+W_p must be lower triangular, as Lmm_p^{-1} is (``ops.lower_inverse``):
+the wide body (m >= 17, or d > 4) skips W's tiles above the diagonal, so
+a nonzero entry there would give an answer that depends on m. The
+wrapper does not check it (that would read W back to the host every
+step).
 
 The wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises if
@@ -19,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.predict import MAX_D, MAX_GRID_YZ, MAX_M, check_tensor, device_index
+from repro_torch.kernels.predict import MAX_GRID_YZ, MAX_M, check_tensor, device_index
 
 # kernel launches; ``reset_launches`` zeroes it (chip_smoke.py reads it
 # around a fit to show that every training step ran the kernel once)
@@ -31,27 +37,29 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def check_problem(x, z, log_lengthscale, log_variance) -> tuple[torch.device, int, int, int, int]:
+def check_problem(
+    x, z, log_lengthscale, log_variance, max_m: int = MAX_M
+) -> tuple[torch.device, int, int, int, int]:
     """Validate the cell-axis (P, B, d) problem shared by the projection and
-    the RBF kernels; return (device, P, B, m, d)."""
+    the RBF kernels (m at most ``max_m``); return (device, P, B, m, d)."""
     if not isinstance(x, torch.Tensor) or x.dim() != 3:
         raise ValueError("x must be a (P, B, d) tensor")
+    P, B, d = x.shape
+    if d < 1:
+        raise ValueError(f"the kernel takes d >= 1 input dims, got {d}")
+    if not 1 <= P <= MAX_GRID_YZ or B < 1:
+        raise ValueError(f"need 1 <= P <= {MAX_GRID_YZ} and B >= 1, got {(P, B)}")
+    if not isinstance(z, torch.Tensor) or z.dim() != 3:
+        raise ValueError("z must be (P, m, d)")
+    m = z.shape[1]
+    if not 1 <= m <= max_m:
+        raise ValueError(f"the kernel takes 1 <= m <= {max_m} inducing points, got {m}")
     device = x.device
     if device.type != "cuda":
         raise ValueError(
             f"the CUDA kernels take CUDA tensors, got {device}; CPU tensors go "
             "to the plain versions in repro_torch.kernels.ref"
         )
-    P, B, d = x.shape
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"the kernel takes 1 <= d <= {MAX_D} input dims, got {d}")
-    if not 1 <= P <= MAX_GRID_YZ or B < 1:
-        raise ValueError(f"need 1 <= P <= {MAX_GRID_YZ} and B >= 1, got {(P, B)}")
-    if not isinstance(z, torch.Tensor) or z.dim() != 3:
-        raise ValueError("z must be (P, m, d)")
-    m = z.shape[1]
-    if not 1 <= m <= MAX_M:
-        raise ValueError(f"the kernel takes 1 <= m <= {MAX_M} inducing points, got {m}")
     check_tensor("x", x, (P, B, d), device)
     check_tensor("z", z, (P, m, d), device)
     check_tensor("log_lengthscale", log_lengthscale, (P, d), device)
@@ -61,7 +69,8 @@ def check_problem(x, z, log_lengthscale, log_variance) -> tuple[torch.device, in
 
 def svgp_projection(x, z, log_lengthscale, log_variance, w):
     """x (P, B, d); z (P, m, d); log_lengthscale (P, d); log_variance (P,);
-    w (P, m, m) -> (knm (P, B, m), lk_t (P, B, m), q_diag (P, B)). One launch."""
+    w (P, m, m), lower triangular -> (knm (P, B, m), lk_t (P, B, m),
+    q_diag (P, B)). One launch."""
     device, P, B, m, d = check_problem(x, z, log_lengthscale, log_variance)
     check_tensor("w", w, (P, m, m), device)
     knm = torch.empty((P, B, m), dtype=torch.float32, device=device)

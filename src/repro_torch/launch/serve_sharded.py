@@ -66,7 +66,7 @@ def make_halo_blend(
     rev = torch.arange(routing.NUM_HALO_SLOTS - 1, -1, -1, device=device)  # slot 8 - k
 
     def blend_fn(cache, hx, corner_slot, corner_w):
-        # 1. every cell's model on its 9 stacked blocks, one slots launch
+        # 1. every cell's model on its 9 stacked blocks, one kernel launch
         ev_mean, ev_var = posterior.predict_cached_slots_stacked(
             cache, cov_fn, hx, backend=backend
         )

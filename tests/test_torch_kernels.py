@@ -44,7 +44,8 @@ def _agrees(got, want, x, factors):
     assert ref.tolerance_ratio(got[1], want[1], fvar_s) <= 1
 
 
-@pytest.mark.parametrize("m,q,d", [(1, 1, 2), (5, 37, 2), (17, 129, 3), (64, 8, 4)])
+@pytest.mark.parametrize("m,q,d", [(1, 1, 2), (5, 37, 2), (17, 129, 3), (64, 8, 4),
+                                   (65, 37, 5), (128, 19, 5)])
 def test_plain_posterior_predict_matches_jax_oracle(m, q, d):
     rng = np.random.default_rng(m * 100 + q)
     f = _factors(rng, (), m, d)
@@ -55,10 +56,11 @@ def test_plain_posterior_predict_matches_jax_oracle(m, q, d):
     _agrees(got, want, *_t([x]), _t(f))
 
 
-def test_plain_rbf_cross_cov_matches_jax_oracle():
+@pytest.mark.parametrize("b,m,d", [(11, 7, 2), (13, 65, 5), (6, 128, 5)])
+def test_plain_rbf_cross_cov_matches_jax_oracle(b, m, d):
     rng = np.random.default_rng(1)
-    x = rng.uniform(0, 2, (11, 2)).astype(np.float32)
-    z, log_l, log_v = _factors(rng, (), 7, 2)[:3]
+    x = rng.uniform(0, 2, (b, d)).astype(np.float32)
+    z, log_l, log_v = _factors(rng, (), m, d)[:3]
     got = ref.rbf_cross_cov(*_t([x, z, log_l, log_v]))
     want = np.asarray(jref.rbf_cross_cov(*map(jnp.asarray, [x, z, log_l, log_v])))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
@@ -86,6 +88,57 @@ def test_plain_cell_axis_slots_are_per_cell_jax_slots():
         fp = [a[p] for a in f]
         want = jref.posterior_predict_slots(*map(jnp.asarray, [hx[p], *fp]))
         _agrees((got[0][p], got[1][p]), want, *_t([hx[p]]), _t(fp))
+
+
+@pytest.mark.parametrize("P,Q,m,d", [(4, 29, 6, 2), (3, 17, 65, 5), (2, 11, 128, 5)])
+def test_cell_axis_posterior_predict_is_per_cell_calls_and_the_jax_oracle(P, Q, m, d):
+    """``ops.posterior_predict`` with a leading cell axis (the "pallas"
+    lane's one launch on CUDA; its plain version here) agrees with the
+    single-model calls cell by cell and with a loop of the JAX oracle,
+    within the tolerance above (a batched CPU matmul sums in another order
+    than an unbatched one, so not bitwise; the CUDA test below is)."""
+    rng = np.random.default_rng(P * Q + m)
+    f = _factors(rng, (P,), m, d)
+    x = rng.uniform(0, 2, (P, Q, d)).astype(np.float32)
+    got = ops.posterior_predict(*_t([x, *f]))
+    assert got[0].shape == got[1].shape == (P, Q)
+    for p in range(P):
+        fp = [a[p] for a in f]
+        one = ops.posterior_predict(*_t([x[p], *fp]))
+        _agrees((got[0][p], got[1][p]), one, *_t([x[p]]), _t(fp))
+        want = jref.posterior_predict(*map(jnp.asarray, [x[p], *fp]))
+        _agrees((got[0][p], got[1][p]), want, *_t([x[p]]), _t(fp))
+
+
+@pytest.mark.parametrize("m,d", [(5, 2), (65, 5)])
+def test_pallas_lane_is_its_old_per_cell_form(m, d):
+    """``predict_cached_slots_stacked(backend="pallas")``, now one call over
+    every cell's (S*Q, d) rows, agrees with the per-cell form it replaced
+    (one single-model ``predict_cached_slots(backend="pallas")`` per cell)
+    within the tolerance above: on the CPU a batched matmul sums in another
+    order (the CUDA test below holds the two bitwise)."""
+    from repro_torch.core import posterior
+    from repro_torch.gp.covariances import CovarianceParams, rbf
+
+    rng = np.random.default_rng(m)
+    P, S, Q = 5, 9, 12
+    z, log_l, log_v, w, u, c = _t(_factors(rng, (P,), m, d))
+    cache = posterior.PosteriorCache(
+        z=z, w=w, u=u, c=c, cov=CovarianceParams(log_lengthscale=log_l, log_variance=log_v),
+        log_beta=torch.as_tensor(rng.normal(3, 0.5, P).astype(np.float32)),
+    )
+    hx = torch.as_tensor(rng.uniform(0, 2, (P, S, Q, d)).astype(np.float32))
+    for noise in (False, True):
+        got = posterior.predict_cached_slots_stacked(cache, rbf, hx, include_noise=noise,
+                                                     backend="pallas")
+        per_cell = [posterior.predict_cached_slots(posterior.take_cache(cache, p), rbf, hx[p],
+                                                   include_noise=noise, backend="pallas")
+                    for p in range(P)]
+        want = [torch.stack([o[i] for o in per_cell]) for i in range(2)]
+        scales = ref.posterior_predict_scales(hx, *(a[:, None] for a in (z, log_l, log_v, w, u, c)))
+        assert got[0].shape == got[1].shape == (P, S, Q)
+        assert ref.tolerance_ratio(got[0], want[0], scales[0]) <= 1
+        assert ref.tolerance_ratio(got[1], want[1], scales[1]) <= 1
 
 
 def test_plain_masked_oracle_matches_jax_and_is_row_independent():
@@ -142,9 +195,33 @@ def test_wrappers_take_cuda_tensors_only_and_count_nothing_on_refusal():
     with pytest.raises(ValueError, match="CUDA tensors"):
         predict.posterior_predict_slots(hx, *f)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        predict.posterior_predict(hx[0, 0], *(a[0] for a in f))
+        predict.posterior_predict(hx[:, 0], *f)
     with pytest.raises(ValueError):
         predict.posterior_predict_slots(hx[0], *f)  # (S, Q, d): no cell axis
+    assert predict.LAUNCHES == {"posterior_predict": 0, "posterior_predict_slots": 0}
+
+
+@pytest.mark.parametrize("m", [predict.MAX_M + 1, 4096])
+def test_wrappers_refuse_m_past_the_wide_limit_with_the_limit(m):
+    """Past the wide body's m (a block's knm tile in shared memory) the
+    wrappers raise, naming the limit, before any device work; K(X, Z) has no
+    such limit."""
+    from repro_torch.kernels import rbf, svgp_proj
+
+    P, d = 1, 2
+    x = torch.zeros(P, 3, d)
+    z = torch.zeros(P, m, d)
+    log_l, log_v = torch.zeros(P, d), torch.zeros(P)
+    sq, c = torch.zeros(P, m, m), torch.zeros(P, m)
+    predict.reset_launches()
+    with pytest.raises(ValueError, match=f"1 <= m <= {predict.MAX_M} inducing points"):
+        predict.posterior_predict(x, z, log_l, log_v, sq, sq, c)
+    with pytest.raises(ValueError, match=f"1 <= m <= {predict.MAX_M} inducing points"):
+        predict.posterior_predict_slots(x[:, None], z, log_l, log_v, sq, sq, c)
+    with pytest.raises(ValueError, match=f"1 <= m <= {svgp_proj.MAX_M} inducing points"):
+        svgp_proj.svgp_projection(x, z, log_l, log_v, sq)
+    with pytest.raises(ValueError, match="CUDA tensors"):  # past the shapes: only the device
+        rbf.rbf_cross_cov(x, z, log_l, log_v)
     assert predict.LAUNCHES == {"posterior_predict": 0, "posterior_predict_slots": 0}
 
 
@@ -200,6 +277,10 @@ def cuda_device():
     # P = 1 at 65,536 rows (the cell spread over many blocks), every MMAX
     (400, 9, 216, 5, 2), (1, 1, 65536, 5, 2), (7, 9, 1, 8, 1), (3, 3, 37, 9, 4),
     (2, 9, 50, 33, 2), (1, 1, 1, 64, 1), (5, 1, 333, 5, 4), (1, 7, 113, 1, 1),
+    # the wide body: m past 64 (ragged against its 32-row tiles and 64 x 32
+    # factor tiles), d past 4 at any m
+    (3, 9, 77, 65, 2), (2, 4, 133, 128, 5), (1, 1, 300, 256, 8), (2, 1, 45, 1024, 2),
+    (1, 1, 70, 2048, 3), (5, 9, 32, 5, 5), (2, 3, 41, 8, 8), (1, 1, 19, 100, 1),
 ])
 def test_cuda_slots_kernel_matches_plain(cuda_device, P, S, Q, m, d):
     rng = np.random.default_rng(P + Q)
@@ -215,16 +296,45 @@ def test_cuda_slots_kernel_matches_plain(cuda_device, P, S, Q, m, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,m", [(1, 1), (1000, 10), (130, 64)])
-def test_cuda_single_block_kernel_matches_plain(cuda_device, Q, m):
-    rng = np.random.default_rng(Q)
-    f = _t(_factors(rng, (), m, 2), cuda_device)
-    x = torch.as_tensor(rng.uniform(0, 2, (Q, 2)).astype(np.float32), device=cuda_device)
+@pytest.mark.parametrize("P,Q,m,d", [(1, 1, 1, 2), (1, 1000, 10, 2), (1, 130, 64, 2),
+                                     (400, 288, 5, 2), (3, 77, 65, 5), (2, 200, 128, 8),
+                                     (1, 33, 1024, 2)])
+def test_cuda_single_block_kernel_matches_plain(cuda_device, P, Q, m, d):
+    rng = np.random.default_rng(Q + m)
+    f = _t(_factors(rng, (P,), m, d), cuda_device)
+    x = torch.as_tensor(rng.uniform(0, 2, (P, Q, d)).astype(np.float32), device=cuda_device)
+    predict.reset_launches()
     got = predict.posterior_predict(x, *f)
+    assert predict.LAUNCHES["posterior_predict"] == 1
     want = ref.posterior_predict(x, *f)
     scales = ref.posterior_predict_scales(x, *f)
     assert ref.tolerance_ratio(got[0], want[0], scales[0]) <= 1
     assert ref.tolerance_ratio(got[1], want[1], scales[1]) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(5, 2), (128, 2), (65, 5)])
+def test_cuda_pallas_lane_is_one_launch_and_bitwise_the_per_cell_launches(cuda_device, m, d):
+    """The "pallas" lane evaluates every cell's (S*Q, d) rows in ONE launch,
+    and its answers are bitwise those of one launch per cell."""
+    from repro_torch.core import posterior
+    from repro_torch.gp.covariances import CovarianceParams, rbf
+
+    rng = np.random.default_rng(m + d)
+    P, S, Q = 12, 9, 32
+    z, log_l, log_v, w, u, c = _t(_factors(rng, (P,), m, d), cuda_device)
+    cache = posterior.PosteriorCache(
+        z=z, w=w, u=u, c=c, cov=CovarianceParams(log_lengthscale=log_l, log_variance=log_v),
+        log_beta=torch.full((P,), 3.0, device=cuda_device),
+    )
+    hx = torch.as_tensor(rng.uniform(0, 2, (P, S, Q, d)).astype(np.float32), device=cuda_device)
+    predict.reset_launches()
+    got = posterior.predict_cached_slots_stacked(cache, rbf, hx, backend="pallas")
+    assert predict.LAUNCHES == {"posterior_predict": 1, "posterior_predict_slots": 0}
+    per_cell = [posterior.predict_cached_slots(posterior.take_cache(cache, p), rbf, hx[p],
+                                               backend="pallas") for p in range(P)]
+    for i in range(2):
+        assert torch.equal(got[i], torch.stack([o[i] for o in per_cell]))
 
 
 @pytest.mark.cuda
@@ -241,7 +351,7 @@ def test_cuda_slots_kernel_rows_are_independent(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,d", [(5, 2), (9, 1), (33, 4)])
+@pytest.mark.parametrize("m,d", [(5, 2), (9, 1), (33, 4), (128, 2), (65, 5)])
 def test_cuda_slots_rows_are_bitwise_the_same_at_any_q_max(cuda_device, m, d):
     """A row's bits do not depend on the tile, thread or row slot it lands
     on, nor on how many rows a thread takes: the same rows at q_max = 32,

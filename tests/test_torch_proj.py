@@ -65,7 +65,8 @@ def _assert_projection_agrees(got, want, args_w):
     assert ref.tolerance_ratio(got[2], want[2], q_s) <= 1
 
 
-@pytest.mark.parametrize("B,m,d", [(1, 1, 2), (8, 5, 2), (33, 10, 3), (7, 64, 4)])
+@pytest.mark.parametrize("B,m,d", [(1, 1, 2), (8, 5, 2), (33, 10, 3), (7, 64, 4),
+                                   (9, 65, 5), (5, 128, 5)])
 def test_plain_svgp_projection_matches_jax_oracle(B, m, d):
     rng = np.random.default_rng(B * 100 + m)
     x, z, log_l, log_v, lmm = _problem(rng, (), B, m, d)
@@ -134,6 +135,23 @@ def test_function_gradcheck_float64():
     assert torch.autograd.gradcheck(ops.SVGPProjection.apply, leaves, eps=1e-6, atol=1e-6)
 
 
+def test_one_training_step_at_m_80_matches_jax_by_injection():
+    """A training step past the narrow kernel's m (the wide body's range on
+    the card; the Function's plain forward here), held to one JAX step with
+    its Pallas projection (interpret mode) by the JAX step's injected draws,
+    at the tolerances of ``test_torch_train._assert_states_agree`` except
+    the params: 1e-4 absolute, since the JAX package's own two lanes (Pallas
+    and jnp) differ by up to 2.5e-4 on them after this step (Adam's first
+    step is a sign-like update, and float32 gradients of 80 terms sum in
+    another order). Jitter 1e-2: at the default 1e-5, Kmm of 80 inducing
+    points among ~200 points a cell is so ill-conditioned that those two
+    lanes differ by 2e-3 in the loss."""
+    import test_torch_train
+
+    test_torch_train.step_by_injection("gather", True, param_atol=1e-4, m=80, grid=2, n=800,
+                                       jitter=1e-2)
+
+
 def test_rbf_cross_cov_dispatch_matches_jax_and_cpu_launches_nothing():
     rng = np.random.default_rng(3)
     x, z, log_l, log_v, lmm = _problem(rng, (2,), 9, 4, 2)
@@ -164,6 +182,31 @@ def test_new_wrappers_take_cuda_tensors_only_and_count_nothing_on_refusal():
     with pytest.raises(ValueError, match=r"\(P, B, d\)"):
         svgp_proj.svgp_projection(x[0], z, log_l, log_v, w)
     assert svgp_proj.LAUNCHES == {"svgp_projection": 0} and rbf.LAUNCHES == {"rbf_cross_cov": 0}
+
+
+@pytest.mark.parametrize("m", [5, 17, 80])
+def test_function_hands_the_kernel_a_lower_triangular_w(monkeypatch, m):
+    """The kernel's precondition (its wide body skips W's tiles above the
+    diagonal): the Function's forward hands it W = Lmm^{-1} with every
+    entry above the diagonal exactly zero, on either side of the wide
+    body's m = 17. The CUDA dispatch is rehearsed here: ``_on_cuda``
+    forced, the wrapper swapped for a recorder of its W that answers with
+    the plain version."""
+    rng = np.random.default_rng(m)
+    args = _t(_problem(rng, (3,), 6, m, 2))
+    seen = []
+
+    def recorder(x, z, log_l, log_v, w):
+        seen.append(w)
+        return ref.svgp_projection(x, z, log_l, log_v, w)
+
+    monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(svgp_proj, "svgp_projection", recorder)
+    ops.svgp_projection(*args)
+    (w,) = seen
+    assert w.shape == (3, m, m) and w.is_contiguous()
+    assert int(torch.count_nonzero(torch.triu(w, 1))) == 0
+    assert int(torch.count_nonzero(torch.diagonal(w, dim1=-2, dim2=-1))) == 3 * m
 
 
 def test_projection_scales_bound_knm_by_the_variance():
@@ -200,6 +243,12 @@ def cuda_device():
     # that start on unaligned addresses
     (1, 65536, 5, 2), (50, 7, 5, 2), (2, 129, 5, 2), (400, 1, 1, 2), (7, 1, 8, 1),
     (3, 33, 9, 4), (1, 127, 33, 2), (2, 200, 64, 4), (600, 111, 5, 2), (70, 1000, 8, 4),
+    # the wide body: m past 64 (ragged against its 32-row tiles and 64 x 32
+    # tiles of W), d past 4 at any m
+    (3, 50, 65, 2), (2, 100, 128, 5), (1, 70, 256, 8), (1, 33, 1024, 2), (1, 40, 2048, 3),
+    (400, 32, 5, 5), (5, 17, 8, 8), (4, 64, 100, 1),
+    # K(X, Z) past one wave of the card (z/l staged; m % 4 == 0 and not)
+    (40, 1024, 32, 2), (30, 1500, 25, 3),
 ])
 def test_cuda_projection_and_rbf_kernels_match_plain(cuda_device, P, B, m, d):
     rng = np.random.default_rng(P + B + m)
@@ -231,14 +280,34 @@ def test_cuda_function_gradient_matches_plain_autograd_with_one_launch(cuda_devi
 
 
 @pytest.mark.cuda
+def test_cuda_function_gradient_at_m_128_matches_plain_autograd(cuda_device):
+    """The wide body's forward under the autograd Function: the gradient
+    against autograd through the plain version, one launch."""
+    rng = np.random.default_rng(3)
+    args = _t(_problem(rng, (6,), 40, 128, 2), device=cuda_device)
+    cot = [torch.randn(s, device=cuda_device) for s in ((6, 40, 128), (6, 40, 128), (6, 40))]
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    svgp_proj.reset_launches()
+    got = torch.autograd.grad(ops.svgp_projection(*leaves), leaves, cot)
+    assert svgp_proj.LAUNCHES["svgp_projection"] == 1
+    plain = [a.clone().requires_grad_(True) for a in args]
+    want = torch.autograd.grad(ops.svgp_projection_ref(*plain), plain, cot)
+    for g, w in zip(got, want, strict=True):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("P,B,m,d", [(50, 7, 5, 2), (2, 129, 5, 2), (5, 33, 9, 4),
-                                     (600, 111, 5, 2), (70, 1000, 8, 4)])
+                                     (600, 111, 5, 2), (70, 1000, 8, 4), (5, 70, 128, 2),
+                                     (3, 33, 65, 5)])
 def test_cuda_projection_rows_are_bitwise_the_same_however_packed(cuda_device, P, B, m, d):
     """A row's outputs do not depend on how cells are packed into blocks,
     on which tile a row lands, on whether the launch stores through
     shared-memory slabs, or on where a slab starts: all P cells in one
     launch equal each cell alone, bitwise, and an x read from an address
-    where a float2 load does not fit gives the same bits."""
+    where a float2 load does not fit gives the same bits. K(X, Z)'s own
+    elementwise body gives the projection's knm, bitwise."""
     rng = np.random.default_rng(P * B + m)
     x, z, log_l, log_v, lmm = _problem(rng, (P,), B, m, d)
     args = _t([x, z, log_l, log_v, _lower_inverse(lmm)], device=cuda_device)

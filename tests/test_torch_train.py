@@ -180,10 +180,11 @@ def _small_problem(grid: int = 3, n: int = 400, seed: int = 0):
     return ds, g
 
 
-def _jax_setup(comm: str, use_pallas: bool, warm_steps: int = 3):
-    ds, g = _small_problem()
+def _jax_setup(comm: str, use_pallas: bool, warm_steps: int = 3, m: int = 5, grid: int = 3,
+               n: int = 400, jitter: float = 1e-5):
+    ds, g = _small_problem(grid, n)
     cfg = jpsvgp.PSVGPConfig(
-        svgp=jsvgp.SVGPConfig(num_inducing=5, input_dim=2, use_pallas=use_pallas),
+        svgp=jsvgp.SVGPConfig(num_inducing=m, input_dim=2, use_pallas=use_pallas, jitter=jitter),
         delta=0.25, batch_size=8, learning_rate=0.05, comm=comm, seed=0,
     )
     data = jpartition.partition_data(ds.x, ds.y, g)
@@ -205,8 +206,9 @@ def _port_twin(ds, g, cfg, state):
     return tdata, tstatic, tstate
 
 
-def _assert_states_agree(tstate, jstate):
-    """Params to 1e-5; the Adam moments (which carry the step's gradient:
+def _assert_states_agree(tstate, jstate, param_atol: float = 1e-5):
+    """Params to ``param_atol`` (1e-5 unless a caller says otherwise); the
+    Adam moments (which carry the step's gradient:
     mu = b1 mu + (1 - b1) g, nu = b2 nu + (1 - b2) g^2) to 1e-4 of each
     leaf's largest entry, float32 gradients summed in another order."""
     want = _flatten(jstate)
@@ -217,7 +219,7 @@ def _assert_states_agree(tstate, jstate):
             scale = max(float(np.abs(w).max()), 1e-30)
             _close(got[key], w, rtol=2e-4, atol=1e-4 * scale, what=key)
         else:
-            _close(got[key], w, rtol=1e-5, atol=1e-5, what=key)
+            _close(got[key], w, rtol=1e-5, atol=param_atol, what=key)
 
 
 def _flatten_port(state: psvgp.PSVGPState) -> dict[str, np.ndarray]:
@@ -232,7 +234,14 @@ def _flatten_port(state: psvgp.PSVGPState) -> dict[str, np.ndarray]:
 @pytest.mark.parametrize("comm,use_pallas", [("gather", False), ("ppermute", False),
                                              ("gather", True)])
 def test_one_step_by_injection_matches_jax(comm, use_pallas):
-    ds, g, cfg, data, static, state = _jax_setup(comm, use_pallas)
+    step_by_injection(comm, use_pallas)
+
+
+def step_by_injection(comm: str, use_pallas: bool, param_atol: float = 1e-5, **setup) -> None:
+    """One SGD step of the JAX package and of the port from the same state,
+    the port fed the JAX step's draws; states held to each other as in
+    :func:`_assert_states_agree`. ``setup`` goes to :func:`_jax_setup`."""
+    ds, g, cfg, data, static, state = _jax_setup(comm, use_pallas, **setup)
     tdata, tstatic, tstate = _port_twin(ds, g, cfg, state)
     key = jax.random.PRNGKey(cfg.seed)
     k1, k2 = jax.random.split(jax.random.fold_in(key, state.step))
@@ -257,7 +266,7 @@ def test_one_step_by_injection_matches_jax(comm, use_pallas):
         )
     assert got.step == int(new.step) == int(state.step) + 1
     _close(tloss, loss, rtol=1e-5, what="loss")
-    _assert_states_agree(got, new)
+    _assert_states_agree(got, new, param_atol)
 
 
 def test_state_from_numpy_round_trips_the_jax_state():
