@@ -52,6 +52,20 @@ Phases, each printed as it runs; any failure exits non-zero:
               "pallas" lane's p50 too), the host stages of a request; ms per
               training step and fit seconds; the device's busy share of a
               request (either lane) and of a training step (torch.profiler).
+  7. lifecycle the paper's in-situ loop on the 2,500-step model: three
+              warm refits of 150 steps on new slices (e3sm_like_field,
+              seed 100 + t), each saved with save_step and swapped in from
+              on_result of a live pipelined stream of 4,096-point
+              requests — every answer bitwise that of a Server on the
+              version live when it was routed, one projection launch per
+              refit step and one slots launch per routed request, the
+              stored steps serving bitwise their in-memory versions; then
+              api.FrontDoor (64 clients x 16 requests of 1-64 points,
+              bitwise solo submit; a shed lane), the HTTP front door
+              (NetServer on 127.0.0.1:0: sync and async clients bitwise
+              Server.submit, 413/400/400/429, a swap under wire load),
+              gp/exact.py against the SVGP at Z = X, and a train-state
+              resume bitwise the uninterrupted fit.
 
 Tolerances (``repro_torch.kernels.ref.tolerance_ratio``): float32 rounding
 scaled by the magnitude of the terms each output sums — prediction: per
@@ -60,8 +74,9 @@ row |d mean| <= 1e-5 max(1, sum_j |k_j c_j|), |d var| <= 1e-5 max(1,
 sigma^2, |d lk_t| <= 1e-5 max(1, sum_j |k_j W_ij|), |d q_diag| <= 1e-5
 max(1, q_diag); gradients: |d g| <= 1e-5 max(1, max |g|) per leaf.
 
-The last two lines of standard output are the kernel table and the
-device record, each one JSON object. Exits non-zero without printing
+The last three lines of standard output are the kernel table (one JSON
+object), the card's name and power limit, and the device record (one
+JSON object). Exits non-zero without printing
 them when no CUDA device is available, or when the port's sources are
 not beside this file.
 """
@@ -528,6 +543,450 @@ def wide_slice(torch, dev, card: str, report: dict, ds):
         print(f"[wide] [{card}] Server on the m 128 model, {lane} lane vs ref: tol ratio mean "
               f"{rm:.3f} var {rv:.3f}; 1 launch of {entry} per request")
     return wide
+
+
+def _pct(ms: list) -> dict:
+    a = np.asarray(ms, np.float64)
+    return {f"p{q}_ms": float(np.percentile(a, q)) for q in (50, 95, 99)}
+
+
+def _equal(a, b) -> bool:
+    return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+
+def _uniform(grid, n: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).uniform(
+        [grid.x_edges[0], grid.y_edges[0]], [grid.x_edges[-1], grid.y_edges[-1]], (n, 2)
+    ).astype(np.float32)
+
+
+def insitu_loop(torch, card: str, report: dict, trained, store: str) -> tuple:
+    """Phase 7a: the paper's in-situ loop on the card. From the 2,500-step
+    fit, served sharded + pipelined on the fused lane, three steps of: a
+    new slice e3sm_like_field(48,602, seed 100 + t), a warm refit of 150
+    steps, ``save_step(store, t)``, and ``Server.swap`` from ``on_result``
+    of a live stream of 4,096-point requests. Every answer is bitwise that
+    of a Server on the version live when the request was routed (the
+    pipelined loop routes request i + 1 before ``on_result(i)``, so a swap
+    there answers i + 2 onward by the new model); one projection launch
+    per refit step and one slots launch per routed request."""
+    from repro_torch import api
+    from repro_torch.core import metrics, partition
+    from repro_torch.data.spatial import e3sm_like_field
+    from repro_torch.kernels import predict, svgp_proj
+
+    server = api.Server(trained, api.ServeConfig(mode="sharded", pipeline="pipelined"))
+    check(server.backend == "fused", f"the in-situ server resolved to {server.backend}")
+    versions = [trained]
+    refs = [api.Server(trained, api.ServeConfig(mode="sharded"))]
+    trained.save_step(store, 0)
+    n_req, at = 32, 10  # a swap from on_result(at) answers at + 2 onward by the new model
+    steps = []
+    for t in (1, 2, 3):
+        data = e3sm_like_field(n=48602, seed=100 + t)
+        svgp_proj.reset_launches()
+        t0 = time.perf_counter()
+        new = api.refit(versions[-1], data, api.RefitConfig(train_iters=150))
+        torch.cuda.synchronize()
+        refit_s = time.perf_counter() - t0
+        proj = svgp_proj.LAUNCHES["svgp_projection"]
+        check(proj == 150, f"step {t}: {proj} projection launches in a 150-step refit")
+        new.save_step(store, t)
+
+        def rmspe(model):
+            pdata = partition.partition_data(data.x, data.y, model.grid, device=model.device)
+            return float(metrics.rmspe(model.static, model.state, pdata, cache=model.cache))
+
+        r_new, r_old = rmspe(new), rmspe(versions[-1])
+        check(np.isfinite(r_new) and r_new < r_old,
+              f"step {t}: refit RMSPE {r_new:.5f} on its slice not below version "
+              f"{t - 1}'s {r_old:.5f}")
+        batches = [_uniform(new.grid, 4096, 1000 * t + i) for i in range(n_req)]
+        calm = server.stream(batches)  # the previous version, no swap
+        outs, rec = {}, {}
+
+        def on_result(i, out, new=new, t=t):
+            outs[i] = out
+            if i == at:
+                rec.update(server.swap(new, version=t))
+
+        server.reset_stats()
+        predict.reset_launches()
+        swapped = server.stream(batches, warm=False, on_result=on_result)
+        launches = dict(predict.LAUNCHES)
+        routed = server.stats()["requests"]
+        check(len(outs) == n_req, f"step {t}: {n_req - len(outs)} requests failed")
+        check(launches["posterior_predict_slots"] == routed and launches["posterior_predict"] == 0,
+              f"step {t}: slots launches {launches} for {routed} routed requests")
+        versions.append(new)
+        refs.append(api.Server(new, api.ServeConfig(mode="sharded")))
+        bad = [i for i, q in enumerate(batches)
+               if not _equal(outs[i], refs[t if i >= at + 2 else t - 1].submit(q))]
+        check(not bad, f"step {t}: answers of requests {bad} differ from the version live "
+              "when they were routed")
+        step = {"refit_s": refit_s, "projection_launches": proj, "build_s": rec["build_s"],
+                "rmspe": r_new, "rmspe_previous_version": r_old, "slots_launches": launches,
+                "routed": routed, "stream_no_swap_ms": calm["latency_ms"],
+                "stream_swap_ms": swapped["latency_ms"]}
+        steps.append(step)
+        print(f"[lifecycle] [{card}] step {t}: refit 150 steps {refit_s:.4f} s (to a "
+              f"synchronize), {proj} projection launches; RMSPE on its slice {r_new:.5f} "
+              f"(version {t - 1}: {r_old:.5f}); swap build_s {rec['build_s']:.6f} s; stream of "
+              f"{n_req} x 4,096 points p50/p95 {calm['latency_ms']['p50_ms']:.4f}/"
+              f"{calm['latency_ms']['p95_ms']:.4f} ms without a swap, "
+              f"{swapped['latency_ms']['p50_ms']:.4f}/{swapped['latency_ms']['p95_ms']:.4f} ms "
+              f"with one; {launches['posterior_predict_slots']} slots launches for {routed} "
+              "routed requests (the swap's probe included); every answer bitwise its version's")
+    lc = server.lifecycle()
+    check(lc["swaps"] == 3 and len(lc["versions"]) == 4 and lc["active_version"] == 3,
+          f"lifecycle {lc}")
+    check(api.peek_steps(store) == [0, 1, 2, 3], f"peek_steps {api.peek_steps(store)}")
+    q = _uniform(versions[-1].grid, 4096, 77)
+    for t, ref_server in enumerate(refs):
+        loaded = api.Server.from_artifact(store, api.ServeConfig(mode="sharded"), step=t)
+        check(_equal(loaded.submit(q), ref_server.submit(q)),
+              f"FittedPSVGP.load(store, step={t}) serves other answers than version {t}")
+    print(f"[lifecycle] lifecycle(): {lc['swaps']} swaps, versions "
+          f"{[v['version'] for v in lc['versions']]}; peek_steps {api.peek_steps(store)}; "
+          "every stored step serves bitwise its in-memory version")
+    report["insitu"] = {"steps": steps, "lifecycle": lc}
+    return server, refs
+
+
+def frontdoor_phase(card: str, report: dict, server) -> None:
+    """Phase 7b: ``FrontDoor`` over the sharded fused server — 64 client
+    coroutines x 16 requests of 1-64 uniform points under the default
+    config, each answer bitwise that request served alone; then a shed
+    lane (queue_depth 4) that must shed, leave no future pending and
+    close."""
+    import asyncio
+
+    from repro_torch import api
+    from repro_torch.kernels import predict
+
+    grid = server.fitted.grid
+    rng = np.random.default_rng(500)
+    work = [[_uniform(grid, int(rng.integers(1, 65)), 10_000 + 16 * c + k) for k in range(16)]
+            for c in range(64)]
+
+    async def drive(cfg):
+        fd = api.FrontDoor(server, cfg)
+        got = {}
+
+        async def client(c):
+            for k, q in enumerate(work[c]):
+                try:
+                    got[c, k] = await fd.submit(q)
+                except api.RequestRejected as err:
+                    got[c, k] = err
+
+        try:
+            await asyncio.gather(*(client(c) for c in range(64)))
+        finally:
+            await asyncio.wait_for(fd.close(), 120)
+        return got, fd.report()
+
+    predict.reset_launches()
+    got, rep = asyncio.run(drive(api.FrontDoorConfig()))
+    launches = dict(predict.LAUNCHES)
+    check(launches["posterior_predict_slots"] == rep["batches"]["count"],
+          f"FrontDoor: {launches} for {rep['batches']['count']} batches")
+    failed = [ck for ck, out in got.items() if isinstance(out, BaseException)]
+    check(len(got) == 1024 and not failed and rep["requests"]["completed"] == 1024,
+          f"FrontDoor: {len(failed)} requests failed, {rep['requests']}")
+    bad = [(c, k) for (c, k), out in got.items() if not _equal(out, server.submit(work[c][k]))]
+    check(not bad, f"FrontDoor: answers of {bad[:8]} differ from solo Server.submit")
+    b = rep["batches"]
+    lat = rep["latency_ms"]
+    report["frontdoor"] = rep
+    print(f"[frontdoor] [{card}] 64 clients x 16 requests of 1-64 points (default config): "
+          f"bitwise == solo submit; end-to-end p50/p95/p99 {lat['p50_ms']:.4f}/"
+          f"{lat['p95_ms']:.4f}/{lat['p99_ms']:.4f} ms; {b['count']} batches, "
+          f"{b['rows_per_batch_mean']:.1f} rows and {b['requests_per_batch_mean']:.2f} "
+          f"requests per batch; recompiles {rep['recompiles']}; slots launches {launches}")
+    got, rep = asyncio.run(drive(api.FrontDoorConfig(queue_depth=4, admission="shed")))
+    shed = sum(isinstance(v, api.RequestRejected) for v in got.values())
+    served = [(c, k) for (c, k), v in got.items() if not isinstance(v, BaseException)]
+    check(shed >= 1 and len(got) == 1024 and shed + len(served) == 1024,
+          f"shed lane: {shed} shed, {len(served)} served of {len(got)}")
+    check(all(_equal(got[ck], server.submit(work[ck[0]][ck[1]])) for ck in served[:64]),
+          "shed lane: a served answer differs from solo Server.submit")
+    report["frontdoor_shed"] = rep["requests"]
+    print(f"[frontdoor] shed lane (queue_depth 4): {shed} shed, {len(served)} served, no "
+          "future pending, close() returned")
+
+
+def _net_thread(net_server_cls, server, net, frontdoor=None):
+    """Start a NetServer on its own event loop in a thread; returns (the
+    NetServer, a stop function that closes it and joins the thread)."""
+    import asyncio
+    import threading
+
+    box, started = {}, threading.Event()
+
+    def run():
+        async def main():
+            box["loop"] = asyncio.get_running_loop()
+            box["stop"] = asyncio.Event()
+            try:
+                async with net_server_cls(server, net, frontdoor) as ns:
+                    box["ns"] = ns
+                    started.set()
+                    await box["stop"].wait()
+            finally:
+                started.set()
+
+        asyncio.run(main())
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    started.wait(60)
+    check("ns" in box, "the NetServer did not start")
+
+    def stop():
+        box["loop"].call_soon_threadsafe(box["stop"].set)
+        thread.join(60)
+        check(not thread.is_alive(), "the NetServer did not stop")
+
+    return box["ns"], stop
+
+
+def http_phase(card: str, report: dict, server, store: str) -> None:
+    """Phase 7c: the HTTP front door on 127.0.0.1:0 over the same server —
+    the sync client, 16 async clients x 16 requests of 64 points on
+    keepalive connections (bitwise ``Server.submit``), the typed statuses
+    (413, 400, 400, 429 with a retry hint) and a swap under wire load."""
+    import asyncio
+    import http.client
+
+    from repro_torch import api
+    from repro_torch.net import protocol
+    from repro_torch.net.client import (
+        AsyncNetClient,
+        NetClient,
+        RetryPolicy,
+        ServerError,
+        predict_points,
+    )
+    from repro_torch.net.server import SHED_RETRY_MS, NetServer
+
+    grid = server.fitted.grid
+    ns, stop = _net_thread(NetServer, server, api.NetConfig(port=0))
+    try:
+        with NetClient("127.0.0.1", ns.port) as c:
+            for i in range(8):
+                q = _uniform(grid, 1 + 9 * i, 20_000 + i)
+                check(_equal(predict_points(c.predict(q)), server.submit(q)),
+                      "NetClient answer differs from Server.submit")
+            try:
+                c.predict(np.zeros((65, 2), np.float32))
+                check(False, "a 65-point request was not refused")
+            except ServerError as err:
+                check(err.status == 413 and err.frame.code == "oversized",
+                      f"oversized request: {err.status} {err.frame.code}")
+        for body in (b"\x00not msgpack", protocol.ErrorFrame("", "internal", "x").encode()):
+            conn = http.client.HTTPConnection("127.0.0.1", ns.port, timeout=60)
+            try:
+                conn.request("POST", "/predict", body=body)
+                resp = conn.getresponse()
+                status, frame = resp.status, protocol.decode_frame(resp.read())
+            finally:
+                conn.close()
+            check(status == 400 and frame.code == "bad-request",
+                  f"malformed body {body[:8]!r}: {status} {frame.code}")
+        work = [[_uniform(grid, 64, 30_000 + 16 * c + k) for k in range(16)] for c in range(16)]
+
+        async def wire():
+            lat = []
+
+            async def client(c):
+                out = []
+                async with AsyncNetClient("127.0.0.1", ns.port) as cl:
+                    for q in work[c]:
+                        t0 = time.perf_counter()
+                        out.append(await cl.predict(q))
+                        lat.append(1e3 * (time.perf_counter() - t0))
+                return out
+
+            return await asyncio.gather(*(client(c) for c in range(16))), lat
+
+        got, lat = asyncio.run(wire())
+        bad = [(c, k) for c in range(16) for k in range(16)
+               if not _equal(predict_points(got[c][k]), server.submit(work[c][k]))]
+        check(not bad, f"wire answers of {bad[:8]} differ from Server.submit")
+        wire_pct = _pct(lat)
+        timing = np.asarray([r.timing_ms for out in got for r in out])
+        report["http"] = {"latency_ms": wire_pct,
+                          "server_timing_ms_p50": dict(zip(("decode_ms", "engine_ms", "total_ms"),
+                                                           np.median(timing, axis=0).tolist()))}
+        fd = report["frontdoor"]["latency_ms"]
+        print(f"[http] [{card}] 16 async clients x 16 requests of 64 points (keepalive): "
+              f"bitwise == Server.submit; client p50/p95 {wire_pct['p50_ms']:.4f}/"
+              f"{wire_pct['p95_ms']:.4f} ms over the wire vs {fd['p50_ms']:.4f}/"
+              f"{fd['p95_ms']:.4f} ms in process (FrontDoor); server-side p50 ms "
+              + ", ".join(f"{k} {v:.4f}" for k, v in report["http"]["server_timing_ms_p50"].items())
+              + "; 413 oversized, 400 garbage, 400 wrong frame kind")
+
+        # a swap under wire load: no failure, and the served version advances
+        rollback = api.FittedPSVGP.load(store, step=2)
+        pts = _uniform(grid, 64, 40_000)
+
+        async def swap_load():
+            loop = asyncio.get_running_loop()
+            state = {"done": 0}
+
+            async def stream():
+                versions = []
+                async with AsyncNetClient("127.0.0.1", ns.port) as cl:
+                    for i in range(48):
+                        versions.append((await cl.predict(pts, request_id=f"s{i}")).server_version)
+                        state["done"] += 1
+                return versions
+
+            async def swapper():
+                while state["done"] < 8:
+                    await asyncio.sleep(0.001)
+                await loop.run_in_executor(None, lambda: server.swap(rollback, version=4))
+
+            return (await asyncio.gather(swapper(), stream()))[1]
+
+        versions = asyncio.run(swap_load())
+        check(len(versions) == 48 and versions == sorted(versions) and versions[0] == 3
+              and versions[-1] == 4, f"server_version over the swap: {versions}")
+        print(f"[http] swap under wire load (to the stored step 2 as version 4): 48 of 48 "
+              f"requests answered, server_version {versions[0]} -> {versions[-1]} monotone")
+    finally:
+        stop()
+
+    # shed -> 429 with a retry hint: a queue of one under bursts of clients
+    ns, stop = _net_thread(NetServer, server, api.NetConfig(port=0),
+                           api.FrontDoorConfig(queue_depth=1, admission="shed"))
+    try:
+        once = RetryPolicy(max_attempts=1)
+
+        async def burst():
+            async def one(i):
+                async with AsyncNetClient("127.0.0.1", ns.port, retry=once) as cl:
+                    try:
+                        await cl.predict(_uniform(grid, 8, 50_000 + i))
+                        return None
+                    except ServerError as err:
+                        return err
+
+            return await asyncio.gather(*(one(i) for i in range(64)))
+
+        shed = []
+        for _ in range(5):
+            shed = [e for e in asyncio.run(burst()) if e is not None]
+            if shed:
+                break
+        check(shed and all(e.status == 429 and e.frame.code == "shed"
+                           and e.frame.retry_after_ms == SHED_RETRY_MS for e in shed),
+              f"shed lane over HTTP: {[(e.status, e.frame.code) for e in shed][:4]}")
+        print(f"[http] shed lane (queue_depth 1, 64 concurrent clients): {len(shed)} answered "
+              f"429 'shed' with retry_after_ms {SHED_RETRY_MS}")
+    finally:
+        stop()
+
+
+def exact_gp_phase(torch, dev, card: str, report: dict) -> None:
+    """Phase 7d: ``gp/exact.py`` on the card, set up as the JAX package's
+    own checks are (tests/test_svgp.py): one cell in f32, n = 32, Z = X,
+    q(u) at the closed-form Titsias optimum — the SVGP's mean and variance
+    within 0.05 of the exact GP's, its ELBO <= logml + 1e-3 and the gap
+    < 2% |logml| + 0.2; and ELBO <= logml + 1e-3 at random initial
+    parameters with m = 16."""
+    from repro_torch.core import svgp
+    from repro_torch.gp import CovarianceParams, exact_gp_logml, exact_gp_predict, make_covariance
+
+    rng = np.random.default_rng(0)
+    x_np = rng.uniform(-2.0, 2.0, (64, 2)).astype(np.float32)
+    y_np = (np.sin(2 * x_np[:, 0]) + 0.5 * np.cos(3 * x_np[:, 1])
+            + 0.1 * rng.normal(size=64)).astype(np.float32)
+    xs = torch.as_tensor(rng.uniform(-2, 2, (16, 2)).astype(np.float32), device=dev)
+    cov_fn = make_covariance("rbf")
+    cfg = svgp.SVGPConfig(num_inducing=32, input_dim=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+
+    def one_cell(p):
+        return CovarianceParams(p.cov.log_lengthscale[0], p.cov.log_variance[0]), p.log_beta[0]
+
+    x, y = torch.as_tensor(x_np[:32], device=dev), torch.as_tensor(y_np[:32], device=dev)
+    params = svgp.init_svgp_params(gen, cfg, x[None])._replace(z=x[None])
+    cov, log_beta = one_cell(params)
+    # the Titsias optimum in float64: S* = Kmm A^-1 Kmm, m* = beta Kmm A^-1 Kmn y
+    beta = torch.exp(log_beta).double()
+    eye = torch.eye(32, dtype=torch.float64, device=dev)
+    kmn = cov_fn(cov, x, x).double()
+    kmm = kmn + 1e-6 * eye
+    a = kmm + beta * kmn @ kmn.T
+    s_star = kmm @ torch.linalg.solve(a, kmm)
+    m_star = beta * kmm @ torch.linalg.solve(a, kmn @ y.double())
+    sl = torch.linalg.cholesky(s_star + 1e-10 * eye)
+    s_tril = torch.tril(sl, -1) + torch.diag(torch.log(torch.diagonal(sl)))
+    params = params._replace(m_star=m_star.float()[None], s_tril=s_tril.float()[None])
+    bound = float(svgp.elbo(params, cov_fn, x[None], y[None], jitter=1e-6)[0])
+    logml = float(exact_gp_logml(cov, log_beta, cov_fn, x, y, jitter=1e-6))
+    mean_s, var_s = svgp.predict(params, cov_fn, xs[None], jitter=1e-6)
+    mean_e, var_e = exact_gp_predict(cov, log_beta, cov_fn, x, y, xs, jitter=1e-6)
+    d_mean = float(torch.max(torch.abs(mean_s[0] - mean_e)))
+    d_var = float(torch.max(torch.abs(var_s[0] - var_e)))
+    check(d_mean <= 0.05 and d_var <= 0.05,
+          f"exact GP: SVGP at Z = X off by {d_mean:.4g} (mean), {d_var:.4g} (var)")
+    check(bound <= logml + 1e-3 and abs(bound - logml) < 0.02 * abs(logml) + 0.2,
+          f"exact GP: ELBO {bound:.5f} vs logml {logml:.5f}")
+    x16, y16 = torch.as_tensor(x_np, device=dev), torch.as_tensor(y_np, device=dev)
+    rand = svgp.init_svgp_params(gen, svgp.SVGPConfig(num_inducing=16, input_dim=2), x16[None])
+    cov16, log_beta16 = one_cell(rand)
+    bound16 = float(svgp.elbo(rand, cov_fn, x16[None], y16[None])[0])
+    logml16 = float(exact_gp_logml(cov16, log_beta16, cov_fn, x16, y16))
+    check(bound16 <= logml16 + 1e-3, f"exact GP: ELBO {bound16:.5f} > logml {logml16:.5f}")
+    report["exact_gp"] = {"elbo": bound, "logml": logml, "max_abs_mean": d_mean,
+                          "max_abs_var": d_var, "elbo_m16": bound16, "logml_n64": logml16}
+    print(f"[exact] [{card}] n = 32, Z = X, Titsias q(u), f32 on the card: ELBO {bound:.5f} <= "
+          f"logml {logml:.5f}; SVGP vs exact max |d mean| {d_mean:.3g}, |d var| {d_var:.3g}; "
+          f"m = 16 at init: ELBO {bound16:.5f} <= logml {logml16:.5f}")
+
+
+def train_state_phase(torch, card: str, report: dict, ds) -> None:
+    """Phase 7e: train-state checkpoints on the card at the paper's
+    configuration — 100 steps, ``save_train_state``, ``load_train_state``,
+    100 more (a warm refit on the same slice continues the step counter),
+    bitwise the uninterrupted 200-step fit."""
+    from repro_torch import api
+    from repro_torch.checkpoint import latest_step, load_train_state, save_train_state
+    from repro_torch.checkpoint.checkpoint import flatten
+
+    cfg = api.FitConfig(grid=20, m=5, delta=0.125, train_iters=200, batch_size=32,
+                        learning_rate=0.05, seed=0)
+    whole = api.fit(cfg, ds)
+    half = api.fit(dataclasses.replace(cfg, train_iters=100), ds)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_train_state(tmp, 100, half.state)
+        check(latest_step(tmp).endswith("step_00000100"), "the latest pointer")
+        state = load_train_state(tmp, half.state)
+    check(state.params.z.device == half.device and state.step == 100, "the restored state")
+    restored = api.FittedPSVGP(half.config, half.grid, half.static, state)
+    resumed = api.refit(restored, ds, api.RefitConfig(train_iters=100))
+    a, b = flatten(resumed.state), flatten(whole.state)
+    bad = [k for k in a if not np.array_equal(a[k], b[k])]
+    check(list(a) == list(b) and not bad, f"resumed fit differs from the 200-step fit at {bad}")
+    report["train_state_resume_bitwise"] = True
+    print(f"[checkpoint] [{card}] paper config: fit 100 -> save_train_state -> load -> 100 more "
+          f"== the 200-step fit, bitwise ({len(a)} leaves, step {resumed.state.step})")
+
+
+def lifecycle_slice(torch, dev, card: str, report: dict, trained, ds) -> None:
+    """Phase 7: the in-situ lifecycle and its front doors on the card; the
+    projection and slots launches of the path are counted within it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        server, _ = insitu_loop(torch, card, report, trained, store)
+        frontdoor_phase(card, report, server)
+        http_phase(card, report, server, store)
+    exact_gp_phase(torch, dev, card, report)
+    train_state_phase(torch, card, report, ds)
 
 
 def training_times(torch, dev, card: str, cache, x_main, fitted, ds, report: dict) -> list:
@@ -999,6 +1458,10 @@ def run(report: dict) -> None:
             print(f"[times] [{card}] {lane} lane: device busy share: not measured "
                   "(torch.profiler saw no device activity)")
     rows += training_times(torch, dev, card, cache, x_train, trained, ds, report)
+
+    # -- 7. the in-situ lifecycle and its front doors (after the times, so
+    # that they are taken in the process state of the earlier slices) -----
+    lifecycle_slice(torch, dev, card, report, trained, ds)
     report["times"] = [
         {"name": n, "shape": list(s), "label": lab, "ms": k, "plain_ms": p,
          "bound_ms": b, "bound_by": by, "floor_ms": report["floor_ms"]}

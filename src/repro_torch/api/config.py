@@ -3,7 +3,10 @@
 :class:`FitConfig` is the training recipe of ``api.fit`` (and is read back
 from an artifact's ``artifact.json``); :class:`RefitConfig` the recipe of
 one in-situ ``api.refit`` step; :class:`ServeConfig` fully determines
-how a loaded artifact answers queries (``api.Server``). Both round-trip
+how a loaded artifact answers queries (``api.Server``);
+:class:`FrontDoorConfig` how the async front door batches and admits, and
+:class:`NetConfig` how the HTTP front door binds (``load_session`` reads
+all three sections of a session file). Each round-trips
 through the same JSON as the JAX package's, lane names included, so one
 session file configures both packages. Only
 :meth:`ServeConfig.resolve_backend` differs: it decides by the torch
@@ -272,3 +275,153 @@ class RefitConfig:
     @classmethod
     def from_json(cls, s: str) -> "RefitConfig":
         return cls.from_dict(json.loads(s))
+
+
+_ADMISSIONS = ("delay", "shed")
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontDoorConfig:
+    """How the async front door (``repro_torch.api.frontdoor``) coalesces many
+    small independent requests into device batches.
+
+    Fields:
+      max_wait_ms: batching-window time trigger — once the first request
+        of a window arrives, the batcher waits at most this long for more
+        before dispatching (the latency a lightly-loaded request pays to
+        buy coalescing under load).
+      max_rows: batching-window size trigger — dispatch as soon as the
+        coalesced window reaches this many query points, however young
+        the window is (caps the device batch, bounding q_max growth).
+      max_request_rows: largest single request admitted (points per
+        request). The front door serves MANY SMALL queries; a bulk batch
+        should go straight to ``Server.submit``.
+      queue_depth: admission-queue bound, in requests. The queue is what
+        absorbs bursts.
+      admission: what happens to a request arriving at a full queue —
+        "delay" applies backpressure (the await blocks until a slot
+        frees: closed-loop clients slow down), "shed" rejects it
+        immediately (``frontdoor.RequestRejected``: open-loop traffic is
+        load-shed instead of building an unbounded backlog).
+    """
+
+    max_wait_ms: float = 2.0
+    max_rows: int = 1024
+    max_request_rows: int = 64
+    queue_depth: int = 256
+    admission: str = "delay"
+
+    def __post_init__(self) -> None:
+        _check(float(self.max_wait_ms) >= 0, f"max_wait_ms must be >= 0, got {self.max_wait_ms}")
+        _check(int(self.max_rows) >= 1, f"max_rows must be >= 1, got {self.max_rows}")
+        _check(
+            1 <= int(self.max_request_rows) <= int(self.max_rows),
+            f"max_request_rows must be in [1, max_rows={self.max_rows}], "
+            f"got {self.max_request_rows}",
+        )
+        _check(int(self.queue_depth) >= 1, f"queue_depth must be >= 1, got {self.queue_depth}")
+        _check(
+            self.admission in _ADMISSIONS,
+            f"admission must be one of {_ADMISSIONS}, got {self.admission!r}",
+        )
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FrontDoorConfig":
+        return _from_dict(cls, d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "FrontDoorConfig":
+        return cls.from_dict(json.loads(s))
+
+
+@dataclasses.dataclass(frozen=True)
+class NetConfig:
+    """How the HTTP front door (``repro_torch.net.server``) binds and guards the
+    socket. The transport knobs only — batching and admission stay in
+    :class:`FrontDoorConfig`, the model in Fit/ServeConfig.
+
+    Fields:
+      host / port: the listen address. Port 0 asks the OS for a free
+        port (the test and benchmark lane); the bound port is in
+        ``NetServer.port``.
+      max_body_bytes: largest accepted ``POST /predict`` body. A body
+        over the cap is refused with 413 BEFORE it is read into memory —
+        the transport-level twin of the front door's
+        ``max_request_rows`` admission check.
+      read_timeout_s: per-request read deadline — a client that stalls
+        mid-body is disconnected rather than pinning a reader task.
+      keepalive: serve multiple requests per connection (HTTP/1.1
+        persistent connections). Off, every response carries
+        ``Connection: close`` — the knob for measuring connection setup
+        cost.
+    """
+
+    host: str = "127.0.0.1"
+    port: int = 8777
+    max_body_bytes: int = 1_048_576
+    read_timeout_s: float = 30.0
+    keepalive: bool = True
+
+    def __post_init__(self) -> None:
+        _check(
+            isinstance(self.host, str) and len(self.host) > 0,
+            f"host must be a non-empty str, got {self.host!r}",
+        )
+        _check(
+            0 <= int(self.port) <= 65535,
+            f"port must be in [0, 65535] (0 = OS-assigned), got {self.port}",
+        )
+        _check(
+            int(self.max_body_bytes) >= 1024,
+            f"max_body_bytes must be >= 1024, got {self.max_body_bytes}",
+        )
+        _check(
+            float(self.read_timeout_s) > 0,
+            f"read_timeout_s must be > 0, got {self.read_timeout_s}",
+        )
+        _check(
+            isinstance(self.keepalive, bool),
+            f"keepalive must be a bool, got {self.keepalive!r}",
+        )
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "NetConfig":
+        return _from_dict(cls, d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "NetConfig":
+        return cls.from_dict(json.loads(s))
+
+
+def load_session(path: str):
+    """Read a session file: ``{"fit": {...}, "serve": {...}, "net":
+    {...}}``, every section optional, no other keys. Returns
+    (fit, serve, net) with ``None`` for an absent section.
+
+    This is the ``--config session.json`` lane of the serving CLIs — the
+    same JSON a saved artifact manifest or a benchmark row carries, so a
+    recorded session replays without reconstructing flag spellings.
+    Stdlib-only, as in the JAX package, where the CLIs read it before
+    the accelerator backend initializes.
+    """
+    with open(path, encoding="utf-8") as f:
+        d = json.load(f)
+    _check(isinstance(d, dict), f"session file {path} must hold a JSON object")
+    unknown = set(d) - {"fit", "serve", "net"}
+    _check(not unknown, f"unknown session sections {sorted(unknown)}; use 'fit'/'serve'/'net'")
+    fit = FitConfig.from_dict(d["fit"]) if "fit" in d else None
+    serve = ServeConfig.from_dict(d["serve"]) if "serve" in d else None
+    net = NetConfig.from_dict(d["net"]) if "net" in d else None
+    return fit, serve, net

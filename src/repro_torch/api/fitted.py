@@ -101,6 +101,25 @@ def _resolve_artifact_dir(path: str, step: int | None) -> str:
     return path
 
 
+def peek_fit_config(path: str, *, step: int | None = None) -> FitConfig:
+    """Read an artifact's FitConfig without building a model (pure JSON).
+
+    ``path`` may be a format=1 artifact directory or a format=2 store
+    (``checkpoint.store``); for a store, ``step`` picks a committed
+    simulation step (latest when None).
+    """
+    path = _resolve_artifact_dir(path, step)
+    with open(os.path.join(path, ARTIFACT_MANIFEST)) as f:
+        manifest = json.load(f)
+    return FitConfig.from_dict(manifest["fit_config"])
+
+
+def peek_steps(path: str) -> list[int]:
+    """The committed step ids of a format=2 store, in ascending order —
+    pure JSON (the "what steps do we have" query)."""
+    return artifact_store.store_steps(path)
+
+
 def _move(tree: Any, device: torch.device) -> Any:
     """Every tensor of a nest of NamedTuples moved to ``device``; other
     leaves (ints, configs, functions, None) kept."""

@@ -1,25 +1,36 @@
 """Pytree checkpoints in the JAX package's format: ``arrays.npz`` keyed by
 pytree path plus a ``manifest.msgpack`` of the keys, shapes and dtypes.
 
-``repro.checkpoint.save_pytree`` writes both and its ``load_pytree``
-requires the manifest. The machine with the card has no msgpack, so the
-write side here encodes the manifest itself: it is a map of str to arrays
-of str and of arrays of non-negative ints, and :func:`packb` covers
-exactly that subset of msgpack, byte for byte as ``msgpack.packb`` writes
-it. The read side needs numpy alone (the manifest repeats what the npz
-holds).
+Port of ``repro.checkpoint.checkpoint``. The manifest is written and read
+with the port's stdlib msgpack codec (``repro_torch.codec``), byte for
+byte as ``msgpack`` writes it, so either package restores the other's
+checkpoints. A pytree here is a nest of dicts (keys sorted, as JAX
+flattens them), NamedTuples, lists and tuples over tensor, ndarray and
+Python int leaves; ``None`` is an empty subtree. A Python int leaf stands
+for the JAX package's ``()`` int32 counters (``PSVGPState.step``,
+``AdamState.step``): it is written as an int32 ``()`` array and read back
+as an int, so a port train state restores in ``repro.checkpoint`` and a
+JAX one in the port.
+
+Per-step directories ``step_XXXXXXXX`` and a ``latest`` pointer file give
+training its resumable semantics (:func:`save_train_state`,
+:func:`load_train_state`).
 """
 from __future__ import annotations
 
 import os
-import struct
 from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch.codec import packb, unpackb
+
 ARRAYS_FILE = "arrays.npz"
 MANIFEST_FILE = "manifest.msgpack"
+LATEST_FILE = "latest"
+
+_INT32 = np.iinfo(np.int32)
 
 
 def load_arrays(path: str) -> dict[str, np.ndarray]:
@@ -28,73 +39,49 @@ def load_arrays(path: str) -> dict[str, np.ndarray]:
         return {key: data[key] for key in data.files}
 
 
-def _sized(out: bytearray, n: int, fix: int, fix_max: int, codes: tuple) -> None:
-    """A msgpack header: the fix form below ``fix_max``, else the smallest
-    of ``codes`` (one code per 1/2/4-byte big-endian length)."""
-    if n < fix_max:
-        out.append(fix | n)
-        return
-    for code, fmt, limit in zip(codes, (">B", ">H", ">I"), (1 << 8, 1 << 16, 1 << 32)):
-        if code is not None and n < limit:
-            out.append(code)
-            out.extend(struct.pack(fmt, n))
-            return
-    raise ValueError(f"msgpack length {n} too large")
-
-
-def packb(obj: Any) -> bytes:
-    """msgpack encoding of dicts, lists/tuples, str and non-negative ints."""
-    out = bytearray()
-
-    def put(o):
-        if isinstance(o, dict):
-            _sized(out, len(o), 0x80, 16, (None, 0xDE, 0xDF))
-            for k, v in o.items():
-                put(k)
-                put(v)
-        elif isinstance(o, list | tuple):
-            _sized(out, len(o), 0x90, 16, (None, 0xDC, 0xDD))
-            for v in o:
-                put(v)
-        elif isinstance(o, str):
-            b = o.encode("utf-8")
-            _sized(out, len(b), 0xA0, 32, (0xD9, 0xDA, 0xDB))
-            out.extend(b)
-        elif isinstance(o, int) and not isinstance(o, bool) and o >= 0:
-            if o < 128:
-                out.append(o)
-            else:
-                for code, fmt, limit in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
-                                         (0xCE, ">I", 1 << 32), (0xCF, ">Q", 1 << 64)):
-                    if o < limit:
-                        out.append(code)
-                        out.extend(struct.pack(fmt, o))
-                        break
-                else:
-                    raise ValueError(f"int {o} too large for msgpack")
-        else:
-            raise TypeError(f"packb encodes dict/list/str/non-negative int, got {type(o).__name__}")
-
-    put(obj)
-    return bytes(out)
-
-
-def flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
-    """``{pytree-path: ndarray}`` in JAX's flattening order: dict keys
-    sorted, NamedTuple fields in declaration order, paths joined by "/"."""
-    if isinstance(tree, torch.Tensor | np.ndarray):
-        a = tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor) else tree
-        return {prefix: np.asarray(a)}
+def _children(tree: Any) -> list[tuple[str, Any]]:
+    """(path key, child) of one interior node, in JAX's flattening order."""
     if isinstance(tree, dict):
-        items = sorted(tree.items())
-    elif hasattr(tree, "_fields"):
-        items = list(zip(tree._fields, tree, strict=True))
-    else:
-        raise TypeError(f"cannot flatten {type(tree).__name__}")
-    out: dict[str, np.ndarray] = {}
-    for key, child in items:
-        out.update(flatten(child, f"{prefix}/{key}" if prefix else str(key)))
-    return out
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if hasattr(tree, "_fields"):
+        return list(zip(tree._fields, tree, strict=True))
+    if isinstance(tree, list | tuple):
+        return [(str(i), child) for i, child in enumerate(tree)]
+    raise TypeError(f"cannot flatten {type(tree).__name__}")
+
+
+def _is_leaf(tree: Any) -> bool:
+    return isinstance(tree, torch.Tensor | np.ndarray | np.generic) or (
+        isinstance(tree, int) and not isinstance(tree, bool)
+    )
+
+
+def _leaf_array(leaf: Any) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    if isinstance(leaf, int):
+        if not _INT32.min <= leaf <= _INT32.max:
+            raise ValueError(f"int leaf {leaf} does not fit the int32 counter it stands for")
+        return np.asarray(leaf, np.int32)
+    return np.asarray(leaf)
+
+
+def _walk(tree: Any, prefix: str = ""):
+    """(path, leaf) of every leaf of ``tree``, in JAX's order."""
+    if tree is None:
+        return
+    if _is_leaf(tree):
+        yield prefix, tree
+        return
+    for key, child in _children(tree):
+        yield from _walk(child, f"{prefix}/{key}" if prefix else key)
+
+
+def flatten(tree: Any) -> dict[str, np.ndarray]:
+    """``{pytree-path: ndarray}`` in JAX's flattening order: dict keys
+    sorted, NamedTuple fields in declaration order, sequence items by
+    index, paths joined by "/"; int leaves as int32 ``()`` arrays."""
+    return {path: _leaf_array(leaf) for path, leaf in _walk(tree)}
 
 
 def save_pytree(path: str, tree: Any) -> None:
@@ -110,3 +97,77 @@ def save_pytree(path: str, tree: Any) -> None:
     }
     with open(os.path.join(path, MANIFEST_FILE), "wb") as f:
         f.write(packb(manifest))
+
+
+def _restore_leaf(key: str, arr: np.ndarray, leaf_t: Any) -> Any:
+    if isinstance(leaf_t, torch.Tensor):
+        want = tuple(leaf_t.shape)
+    else:
+        want = tuple(np.shape(leaf_t))
+    if tuple(arr.shape) != want:
+        raise ValueError(f"{key}: checkpoint shape {arr.shape} != template {want}")
+    if isinstance(leaf_t, torch.Tensor):
+        out = torch.from_numpy(np.ascontiguousarray(arr))
+        return out.to(device=leaf_t.device, dtype=leaf_t.dtype)
+    if isinstance(leaf_t, int):
+        return int(arr)
+    return arr.astype(np.asarray(leaf_t).dtype)
+
+
+def _rebuild(tree: Any, leaves: dict[str, Any], prefix: str = "") -> Any:
+    if tree is None:
+        return None
+    if _is_leaf(tree):
+        return leaves[prefix]
+    rebuilt = {key: _rebuild(child, leaves, f"{prefix}/{key}" if prefix else key)
+               for key, child in _children(tree)}
+    if isinstance(tree, dict):
+        return {k: rebuilt[str(k)] for k in tree}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(rebuilt[f] for f in tree._fields))
+    return type(tree)(rebuilt[str(i)] for i in range(len(tree)))
+
+
+def load_pytree(path: str, template: Any) -> Any:
+    """Restore into the structure of ``template`` (shape-checked): tensor
+    leaves come back as tensors of the template leaf's dtype on its
+    device, ndarray leaves in its dtype, int leaves as ints."""
+    with open(os.path.join(path, MANIFEST_FILE), "rb") as f:
+        manifest = unpackb(f.read())
+    data = load_arrays(path)
+    flat_t = list(_walk(template))
+    if len(flat_t) != len(manifest["keys"]):
+        raise ValueError(
+            f"checkpoint has {len(manifest['keys'])} leaves, template {len(flat_t)}"
+        )
+    leaves = {}
+    for key, leaf_t in flat_t:
+        if key not in data:
+            raise KeyError(f"checkpoint missing leaf {key!r}")
+        leaves[key] = _restore_leaf(key, data[key], leaf_t)
+    return _rebuild(template, leaves)
+
+
+def save_train_state(ckpt_dir: str, step: int, state: Any) -> str:
+    """Write ``state`` to ``ckpt_dir/step_XXXXXXXX`` and point ``latest``
+    at it. Returns the step directory."""
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    save_pytree(path, state)
+    with open(os.path.join(ckpt_dir, LATEST_FILE), "w") as f:
+        f.write(os.path.basename(path))
+    return path
+
+
+def latest_step(ckpt_dir: str) -> str | None:
+    """The directory ``latest`` points at, or None before the first save."""
+    p = os.path.join(ckpt_dir, LATEST_FILE)
+    if not os.path.exists(p):
+        return None
+    with open(p) as f:
+        return os.path.join(ckpt_dir, f.read().strip())
+
+
+def load_train_state(ckpt_dir: str, template: Any) -> Any | None:
+    """The latest saved state in the structure of ``template``, or None."""
+    path = latest_step(ckpt_dir)
+    return None if path is None else load_pytree(path, template)

@@ -251,3 +251,98 @@ def cache_memory_bytes(cache: posterior.PosteriorCache) -> tuple[int, int]:
     GPU, where every cell is resident."""
     total = sum(t.numel() * t.element_size() for t in posterior.cache_leaves(cache))
     return total, total
+
+
+# --------------------------------------------------------------------------
+# CLI helpers, shared with ``repro_torch.net.server``
+# --------------------------------------------------------------------------
+
+
+def load_or_train(args, *, fit_cfg=None):
+    """The fit-or-load front of the GP serving CLI: returns (ds, fitted),
+    ds None when serving a persisted artifact (``--gp-artifact``; no
+    retraining on that path), else a demo surface trained on the
+    synthetic E3SM-like field (``--gp-n`` points). ``--gp-save`` persists
+    a freshly trained artifact; ``fit_cfg`` (a session file's fit
+    section) replaces the flag-derived training config. Runs on
+    ``--device`` (``"cuda"`` when absent: a machine without a GPU
+    raises)."""
+    from repro_torch import api
+    from repro_torch.data.spatial import e3sm_like_field
+
+    device = getattr(args, "device", None)
+    if getattr(args, "gp_artifact", None):
+        fitted = api.FittedPSVGP.load(args.gp_artifact, device=device)
+        print(f"loaded artifact {args.gp_artifact}: grid="
+              f"{fitted.grid.gx}x{fitted.grid.gy}, m={fitted.config.m} on "
+              f"{fitted.device} (serving without retraining)")
+        ds = None
+    else:  # the demo surface on the synthetic E3SM-like field
+        if fit_cfg is None:
+            fit_cfg = api.FitConfig(grid=args.gp_grid, m=args.gp_m,
+                                    train_iters=args.gp_train_iters, seed=args.seed)
+        ds = e3sm_like_field(n=args.gp_n, seed=fit_cfg.seed)
+        fitted = api.fit(fit_cfg, ds, device=device, verbose=True)
+    if getattr(args, "gp_save", None):
+        fitted.save(args.gp_save)
+        print(f"artifact saved to {args.gp_save}")
+    return ds, fitted
+
+
+def session_configs(args, *, expect_mode: str):
+    """The ``--config session.json`` lane: returns (fit_cfg, serve_cfg,
+    net_cfg) — (None, None, None) without the flag. A serve section whose
+    mode contradicts the running entry point is an error, and so is
+    ``--http`` against a session file with no ``net`` section: a recorded
+    session must say where it binds."""
+    if not getattr(args, "config", None):
+        return None, None, None
+    from repro_torch.api.config import load_session
+
+    fit_cfg, serve_cfg, net_cfg = load_session(args.config)
+    if serve_cfg is not None and serve_cfg.mode != expect_mode:
+        raise SystemExit(
+            f"--config {args.config}: serve section has mode="
+            f"{serve_cfg.mode!r} but this entry point serves "
+            f"{expect_mode!r} (pick the matching CLI or fix the session)"
+        )
+    if getattr(args, "http", False) and net_cfg is None:
+        raise SystemExit(
+            f"--http with --config {args.config}: the session file has no "
+            "'net' section (host/port/max_body_bytes/read_timeout_s/"
+            "keepalive — api.NetConfig); add one."
+        )
+    return fit_cfg, serve_cfg, net_cfg
+
+
+def add_gp_args(ap) -> None:
+    """The serving flags of ``python -m repro_torch.net.server``: the JAX
+    package's spellings of those its HTTP entry point reads (the demo
+    stream's --gp-batch/--gp-requests/--gp-serial/--gp-skew wait for the
+    port's ``launch/serve.py``), plus ``--device``."""
+    ap.add_argument("--gp-n", type=int, default=20_000, help="training observations")
+    ap.add_argument("--gp-grid", type=int, default=8, help="partition grid is gp-grid^2")
+    ap.add_argument("--gp-m", type=int, default=10, help="inducing points per partition")
+    ap.add_argument("--gp-train-iters", type=int, default=200)
+    ap.add_argument("--gp-router", choices=("single", "two-level"),
+                    default="single",
+                    help="q_max routing policy: 'single' pads every cell's "
+                         "block to the hottest cell; 'two-level' spills "
+                         "hot-cell overflow onto corner-cell neighbors "
+                         "(routing.TwoLevelQMax)")
+    ap.add_argument("--gp-save", metavar="DIR", default=None,
+                    help="persist the trained artifact (FitConfig + grid + "
+                         "params + cached factors) to DIR after training")
+    ap.add_argument("--gp-artifact", metavar="DIR", default=None,
+                    help="serve from a persisted artifact (either package's; "
+                         "a format-2 store serves its latest step) instead "
+                         "of training")
+    ap.add_argument("--config", metavar="SESSION_JSON", default=None,
+                    help="session file with optional 'fit', 'serve' and "
+                         "'net' sections (api.load_session). The fit section "
+                         "replaces the training flags; the serve section "
+                         "replaces --gp-router and picks the mode; the net "
+                         "section (required) says where to bind")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="where to fit and serve; cuda when absent (raises "
+                         "on a machine without a GPU)")
