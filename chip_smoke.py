@@ -37,7 +37,12 @@ Phases, each printed as it runs; any failure exits non-zero:
               the card: one projection launch per step, in-sample RMSPE and
               boundary RMSD inside the band of the JAX package's seeds,
               save -> load -> serve bitwise, a ppermute fit, a warm refit,
-              refit(scratch) == fit bitwise. Then a wide model: api.fit at
+              refit(scratch) == fit bitwise. The same 2,500-step fit through
+              psvgp.fit(use_scan=True), the CUDA graph lane: bitwise the
+              eager fit on every leaf, one projection launch a step, in the
+              band; a 150-step warm refit through it bitwise the
+              uninterrupted 2,650 steps and the eager refit; fit seconds,
+              replayed step ms (device clock), capture ms. Then a wide model: api.fit at
               grid 4, m 128 (300 steps), one projection launch a step,
               RMSPE within 15% of the same fit through the plain projection
               on the card (and the same pair at jitter 1e-3), served on the
@@ -51,7 +56,9 @@ Phases, each printed as it runs; any failure exits non-zero:
               latency and points/s of a stream of 4,096-point requests (the
               "pallas" lane's p50 too), the host stages of a request; ms per
               training step and fit seconds; the device's busy share of a
-              request (either lane) and of a training step (torch.profiler).
+              request (either lane) and of a training step (torch.profiler),
+              eager and replayed from its CUDA graph (host syncs, device ops
+              and projection kernels per replay).
   7. lifecycle the paper's in-situ loop on the 2,500-step model: three
               warm refits of 150 steps on new slices (e3sm_like_field,
               seed 100 + t), each saved with save_step and swapped in from
@@ -949,6 +956,111 @@ def exact_gp_phase(torch, dev, card: str, report: dict) -> None:
           f"m = 16 at init: ELBO {bound16:.5f} <= logml {logml16:.5f}")
 
 
+def scan_slice(torch, dev, card: str, report: dict, fitted, ds):
+    """Phase 5c: the 2,500-step fit of phase 5 again, from the same initial
+    state, through ``psvgp.fit(use_scan=True)``: three eager warm-up steps,
+    one step captured as a CUDA graph, 2,497 replays. Its state bitwise the
+    eager fit's on every leaf; one projection launch a step; the quality
+    band; a 150-step warm refit through the lane bitwise the uninterrupted
+    2,650 steps through it and the eager warm refit (``api.refit``). Times:
+    fit seconds to a synchronize, each replayed step on the device clock
+    (CUDA events recorded between replays), a replay's host call (the first
+    20, before the launch queue fills and blocks the call until the card
+    frees a slot; and over the fit), the capture. Returns the graph lane's
+    model."""
+    from repro_torch import api
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.core import partition, psvgp
+    from repro_torch.kernels import svgp_proj
+
+    def differ(a, b):
+        a, b = flatten(a), flatten(b)
+        return ["keys"] if list(a) != list(b) else [k for k in a if not np.array_equal(a[k], b[k])]
+
+    static, iters = fitted.static, fitted.config.train_iters
+    pdata = partition.partition_data(ds.x, ds.y, fitted.grid, device=dev)
+    init = psvgp.init(fitted.config.seed, static.cfg, pdata)
+
+    # time the replays (an event after each; the host call too) and the
+    # capture, inside the fit itself
+    graph_cls = torch.cuda.CUDAGraph
+    replay, begin, end = graph_cls.replay, graph_cls.capture_begin, graph_cls.capture_end
+    events, host_us, capture = [], [], []
+
+    def timed_replay(self):
+        t0 = time.perf_counter()
+        replay(self)
+        host_us.append(1e6 * (time.perf_counter() - t0))
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    def timed_begin(self, *args, **kwargs):
+        capture.append(time.perf_counter())
+        return begin(self, *args, **kwargs)
+
+    def timed_end(self, *args, **kwargs):
+        out = end(self, *args, **kwargs)
+        capture.append(time.perf_counter())
+        return out
+
+    svgp_proj.reset_launches()
+    graph_cls.replay, graph_cls.capture_begin, graph_cls.capture_end = (
+        timed_replay, timed_begin, timed_end)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = psvgp.fit(static, init, pdata, iters, use_scan=True)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        graph_cls.replay, graph_cls.capture_begin, graph_cls.capture_end = replay, begin, end
+    launches = svgp_proj.LAUNCHES["svgp_projection"]
+    replays = iters - psvgp.WARMUP_STEPS
+    check(len(events) == replays and len(capture) == 2,
+          f"the graph lane made {len(events)} replays and {len(capture) // 2} captures, not "
+          f"{replays} and 1")
+    check(launches == iters, f"graph lane: projection launches {launches} != {iters} steps")
+    bad = differ(state, fitted.state)
+    check(not bad, f"the graph lane's 2,500-step state differs from the eager fit's at {bad}")
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:], strict=False)]
+    rec = {
+        "fit_seconds": fit_s, "capture_ms": 1e3 * (capture[1] - capture[0]),
+        "step_ms_p50": float(np.median(step_ms)), "step_ms_p95": float(np.percentile(step_ms, 95)),
+        "replay_host_us_first20_p50": float(np.median(host_us[:20])),
+        "replay_host_us_p50": float(np.median(host_us)), "projection_launches": launches,
+        "bitwise_eager": True,
+    }
+    print(f"[training] graph lane (psvgp.fit(use_scan=True)), 2,500 steps: bitwise the eager "
+          f"api.fit on every leaf ({len(flatten(state))} leaves); {launches} projection launches")
+    lane = api.FittedPSVGP(fitted.config, fitted.grid, static, state)
+    rmspe, rmsd = train_quality(torch, lane, ds, "graph lane, seed 0")
+    check(0.052 <= rmspe <= 0.068, f"graph lane RMSPE {rmspe:.5f} outside [0.052, 0.068]")
+    check(0.054 <= rmsd <= 0.076, f"graph lane boundary RMSD {rmsd:.5f} outside [0.054, 0.076]")
+    rec["rmspe"], rec["boundary_rmsd"] = rmspe, rmsd
+
+    # the in-situ budget: 150 warm steps through the lane, resumed
+    t0 = time.perf_counter()
+    resumed = psvgp.fit(static, state, pdata, 150, use_scan=True)
+    torch.cuda.synchronize()
+    rec["warm_150_seconds"] = time.perf_counter() - t0
+    whole = psvgp.fit(static, init, pdata, iters + 150, use_scan=True)
+    eager = api.refit(fitted, ds, api.RefitConfig(train_iters=150))
+    for name, other in (("the uninterrupted 2,650-step lane fit", whole),
+                        ("the eager warm refit", eager.state)):
+        bad = differ(resumed, other)
+        check(not bad, f"the lane's 150-step warm refit differs from {name} at {bad}")
+    print("[training] graph lane: 2,500 + 150 warm steps == 2,650 steps, bitwise, and == the "
+          "eager api.refit of 150 steps")
+    report["graph_lane"] = rec
+    print(f"[times] [{card}] training, graph lane: {fit_s:.3f} s for 2,500 steps to a synchronize "
+          f"(capture {rec['capture_ms']:.3f} ms); replayed step p50 {rec['step_ms_p50']:.4f} ms, "
+          f"p95 {rec['step_ms_p95']:.4f} ms (device clock); a replay's host call p50 "
+          f"{rec['replay_host_us_first20_p50']:.1f} us over the first 20 replays, "
+          f"{rec['replay_host_us_p50']:.1f} us over the fit (a full launch queue blocks it); "
+          f"150 warm steps {rec['warm_150_seconds']:.3f} s")
+    return lane
+
+
 def train_state_phase(torch, card: str, report: dict, ds) -> None:
     """Phase 7e: train-state checkpoints on the card at the paper's
     configuration — 100 steps, ``save_train_state``, ``load_train_state``,
@@ -1065,6 +1177,57 @@ def training_times(torch, dev, card: str, cache, x_main, fitted, ds, report: dic
         report["train_device_busy_share"] = None
         print(f"[times] [{card}] training step device busy share: not measured "
               "(torch.profiler saw no device activity)")
+
+    # the graph lane: the same step captured once (psvgp.CapturedStep, as
+    # fit(use_scan=True) runs it) and replayed; host syncs over 20 replays,
+    # then a profiler window of 20 (its tracing slows the replays: the busy
+    # share is also given against phase 5c's replayed step)
+    captured = psvgp.CapturedStep(fitted.static, psvgp.device_counters(state, dev), pdata)
+    captured.replay(3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        captured.replay(n)
+    torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    report["graph_replay_host_syncs"] = len(syncs)
+    check(not syncs, f"{len(syncs)} host synchronizations in {n} replays of the captured step")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        captured.replay(n)
+        torch.cuda.synchronize()
+        window_us = 1e6 * (time.perf_counter() - t0)
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, per_name = device_busy(torch, prof, n)
+    proj = sum("projection" in e.name for e in on_card)
+    # the card's own span, first kernel start to last kernel end: the
+    # window's host time also holds the profiler's start and stop
+    span_us = (max(e.time_range.end for e in on_card) - min(e.time_range.start for e in on_card)
+               if on_card else 0.0)
+    report["graph_device_ops_per_step"] = len(on_card) / n
+    report["graph_projection_launches_by_profiler"] = proj
+    if busy_us > 0:
+        check(proj == n, f"the profiler saw {proj} projection kernels in {n} replays, not {n}")
+        step_us = 1e3 * report["graph_lane"]["step_ms_p50"]
+        report["graph_device_busy_share"] = busy_us / window_us
+        report["graph_device_busy_share_of_span"] = busy_us / span_us
+        report["graph_device_busy_share_of_step"] = busy_us / n / step_us
+        report["graph_device_us_per_step"] = per_name
+        print(f"[times] [{card}] training step, graph lane: 0 host syncs in {n} replays; "
+              f"{len(on_card) / n:.1f} device ops and {proj / n:.0f} projection kernel per "
+              f"replay (profiler); device busy {busy_us / n:.1f} us of {window_us / n:.1f} us "
+              f"per step (share {busy_us / window_us:.4f}; of the card's span "
+              f"{span_us / n:.1f} us, {busy_us / span_us:.4f}; of the {step_us:.1f} us replayed "
+              f"step of phase 5c, {busy_us / n / step_us:.4f}); top device ops, us per step: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in per_name.items()))
+    else:
+        report["graph_device_busy_share"] = None
+        print(f"[times] [{card}] training step, graph lane: 0 host syncs in {n} replays; device "
+              "busy share and kernels by profiler: not measured (torch.profiler saw no device "
+              "activity)")
     return rows
 
 
@@ -1137,7 +1300,9 @@ def wide_times(torch, dev, card: str, report: dict) -> list:
                 bmm_ms = device_ms(torch, lambda k=knm, a=w: torch.bmm(k, a.mT))
             label = f"m={m} d={d} (P, B)={shape}"
         k_ms = device_ms(torch, lambda f=kernel, a=args: f(*a))
-        p_ms = device_ms(torch, lambda f=plain, a=args: f(*a), reps=10)
+        # the plain prediction takes one op per inducing point (ref.row_products):
+        # ~0.2 s a call at m = 1,024, so fewer calls in its graph there
+        p_ms = device_ms(torch, lambda f=plain, a=args: f(*a), reps=10 if m <= 256 else 2)
         rows.append((name, label, shape, k_ms, p_ms, b_ms, b_by))
         report["bmm_ms"][f"{name} {label}"] = bmm_ms
         print(f"[times] [{card}] {name} {label}: kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms, "
@@ -1349,6 +1514,7 @@ def run(report: dict) -> None:
 
     # -- 5. training on the card ----------------------------------------------
     trained = train_slice(torch, dev, card, report, ds)
+    scan_slice(torch, dev, card, report, trained, ds)
     wide_slice(torch, dev, card, report, ds)
     rbf.reset_launches()
     ops.rbf_cross_cov(x_train, cache.z, cache.cov.log_lengthscale, cache.cov.log_variance)

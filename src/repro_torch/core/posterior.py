@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.gp.covariances import CovarianceParams, kdiag
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 
 class PosteriorCache(NamedTuple):
@@ -182,13 +183,14 @@ def predict_cached(
             cache.w, cache.u, cache.c, cov_fn=cov_fn,
         )
     else:
+        # each row summed in one fixed order in float64 and rounded once
+        # (``ref.row_products``): a row's answer does not depend on the
+        # batch around it
         knm = cov_fn(cache.cov, xstar, cache.z)  # (..., Q, m)
-        fmean = (knm @ cache.c[..., :, None])[..., 0]
-        lk = knm @ cache.w.mT
-        su = knm @ cache.u.mT
-        qd = torch.sum(lk * lk, dim=-1)
-        sd = torch.sum(su * su, dim=-1)
-        fvar = kdiag(cache.cov, xstar) - qd + sd
+        fmean = kref.row_products(knm, cache.c[..., None, :])[..., 0].to(knm.dtype)
+        qd = kref.row_sumsq(kref.row_products(knm, cache.w))
+        sd = kref.row_sumsq(kref.row_products(knm, cache.u))
+        fvar = (kdiag(cache.cov, xstar).double() - qd + sd).to(knm.dtype)
     return fmean, _finish(cache.log_beta, fvar, include_noise)
 
 

@@ -18,16 +18,20 @@ JAX package's per-cell ``vmap(value_and_grad)`` computes. With
 ``SVGPConfig.use_pallas`` the ELBO's projection is ONE launch of the CUDA
 kernel per step over all (P, B) rows (``kernels/ops.SVGPProjection``).
 
-A step reads nothing back to the host: the step counter is a host
-integer, the draws come from a generator seeded by (seed, step)
-(``sampler.step_generator``), the Cholesky does not check its result
-(``posterior.kmm_chol(check=False)``), and the loss is returned as a
-device tensor that only ``fit(log_every=...)`` reads. The JAX package's
-``use_scan`` is an XLA-program option; its counterpart here, a CUDA graph
-of the step, is later work.
+A step reads nothing back to the host: the draws are counter-based
+uniforms of (seed, step) (``sampler.StepDraws``), Adam's bias corrections
+are computed on the device from the step count, the Cholesky does not
+check its result (``posterior.kmm_chol(check=False)``), and the loss is
+returned as a device tensor that only ``fit(log_every=...)`` reads.
+Inside :func:`fit` the two counters are int64 tensors on the device, so
+the step is a fixed sequence of device work: ``fit(use_scan=True)``, the
+counterpart of the JAX package's ``lax.scan`` option, captures it once as
+a CUDA graph (:class:`CapturedStep`) and replays it, bitwise the eager
+loop.
 """
 from __future__ import annotations
 
+import contextlib
 from collections.abc import Callable
 from typing import NamedTuple
 
@@ -39,16 +43,21 @@ from repro_torch.core.neighbors import direction_permutations, neighbor_table
 from repro_torch.core.partition import PartitionedData
 from repro_torch.core.sampler import (
     SlotDistribution,
+    StepDraws,
     categorical,
     gather_minibatch,
     sample_minibatch_indices,
     sample_slots,
     slot_distribution,
-    step_generator,
     stream_seed,
 )
 from repro_torch.gp.covariances import CovarianceParams, make_covariance
-from repro_torch.optim import AdamState, adam_init, adam_update, tree_map
+from repro_torch.kernels import svgp_proj
+from repro_torch.optim import AdamState, adam_init, adam_update, tree_leaves, tree_map
+
+# eager steps that open a captured fit: real steps, and the capture's
+# warm-up on a side stream (lazy initialization stays out of the graph)
+WARMUP_STEPS = 3
 
 
 class PSVGPConfig(NamedTuple):
@@ -63,7 +72,9 @@ class PSVGPConfig(NamedTuple):
 class PSVGPState(NamedTuple):
     params: svgp.SVGPParams  # every leaf has a leading (P, ...) axis
     opt: AdamState
-    step: int  # SGD steps taken; with the seed it picks the step's draws
+    # SGD steps taken; with the seed it picks the step's draws. An int at
+    # the API, an int64 tensor of shape () on the device inside ``fit``
+    step: int | torch.Tensor
 
 
 class PSVGPStatic(NamedTuple):
@@ -100,12 +111,6 @@ def init(seed: int, cfg: PSVGPConfig, data: PartitionedData) -> PSVGPState:
     return PSVGPState(params=params, opt=adam_init(params), step=0)
 
 
-def _leaves(tree) -> list[torch.Tensor]:
-    out: list[torch.Tensor] = []
-    tree_map(out.append, tree)
-    return out
-
-
 def _sgd_step(state, bx, by, bm, n_eff, cfg: PSVGPConfig, cov_fn, ll_weight=1.0):
     """-ELBO of every cell on its mini-batch, its gradient, one Adam update.
     Returns (new state, (P,) per-cell losses)."""
@@ -117,7 +122,7 @@ def _sgd_step(state, bx, by, bm, n_eff, cfg: PSVGPConfig, cov_fn, ll_weight=1.0)
             whitened=scfg.whitened, use_pallas=scfg.use_pallas, ll_weight=ll_weight,
             likelihood=scfg.likelihood,
         )
-        grads = iter(torch.autograd.grad(torch.sum(losses), _leaves(params)))
+        grads = iter(torch.autograd.grad(torch.sum(losses), tree_leaves(params)))
     grads = tree_map(lambda _: next(grads), params)
     with torch.no_grad():
         new_params, new_opt = adam_update(state.params, grads, state.opt, lr=cfg.learning_rate)
@@ -142,9 +147,9 @@ def train_step_gather(
     ``draws`` = (kprime (P,), idx (P, B)) replaces the step's own draws
     (tests feed the JAX package's). Returns (new state, mean -ELBO)."""
     if draws is None:
-        gen = step_generator(seed, state.step, x.device)
-        kprime, _slot = sample_slots(gen, dist)
-        idx, _ = sample_minibatch_indices(gen, mask[kprime], cfg.batch_size)
+        rand = StepDraws(seed, state.step, x.device)
+        kprime, _slot = sample_slots(rand, dist)
+        idx, _ = sample_minibatch_indices(rand, mask[kprime], cfg.batch_size)
     else:
         kprime, idx = draws
     bx, by, bm = gather_minibatch(x, y, mask, kprime, idx)
@@ -173,9 +178,9 @@ def train_step_ppermute(
 
     ``draws`` = (d (), idx (P, B)) replaces the step's own draws."""
     if draws is None:
-        gen = step_generator(seed, state.step, x.device)
-        d = categorical(torch.log(torch.clamp_min(p_dir, 1e-30)), gen)
-        idx, _ = sample_minibatch_indices(gen, mask, cfg.batch_size)
+        rand = StepDraws(seed, state.step, x.device)
+        d = categorical(torch.log(torch.clamp_min(p_dir, 1e-30)), rand)
+        idx, _ = sample_minibatch_indices(rand, mask, cfg.batch_size)
     else:
         d, idx = draws
     d = d.reshape(1)
@@ -210,15 +215,109 @@ def fit(
     num_iters: int,
     seed: int | None = None,
     log_every: int = 0,
+    use_scan: bool = False,
 ) -> PSVGPState:
-    """Run ``num_iters`` SGD iterations. Step t's draws depend on (seed,
-    t) only, so a continued run never replays earlier batches. Nothing is
-    read back to the host unless ``log_every`` asks for the loss."""
-    for i in range(num_iters):
-        state, loss = train_step(static, state, data, seed)
-        if log_every and (i + 1) % log_every == 0:
-            print(f"  iter {i + 1:5d}  mean -ELBO/partition: {float(loss):.4f}")
+    """Run ``num_iters`` SGD iterations from a state whose counters are
+    ints. Step t's draws depend on (seed, t) only, so a continued run never
+    replays earlier batches. Nothing is read back to the host unless
+    ``log_every`` asks for the loss.
+
+    ``use_scan`` (with ``log_every`` 0, as in the JAX package) runs the
+    steps after the first :data:`WARMUP_STEPS` as replays of ONE captured
+    step (:class:`CapturedStep`): on CUDA a CUDA graph, so the host issues
+    a step in one call instead of ~500 ops; on the CPU the same function
+    eagerly. Identical math either way: the state is bitwise that of the
+    plain loop. A capture or replay that fails raises."""
+    seed = static.cfg.seed if seed is None else seed
+    end = (state.step + num_iters, state.opt.step + num_iters)
+    state = device_counters(state, data.x.device)
+    if use_scan and not log_every:
+        warm = min(num_iters, WARMUP_STEPS)
+        state = _warm_up(static, state, data, seed, warm)
+        if num_iters > warm:
+            captured = CapturedStep(static, state, data, seed)
+            captured.replay(num_iters - warm)
+            state = captured.state()
+    else:
+        for i in range(num_iters):
+            state, loss = train_step(static, state, data, seed)
+            if log_every and (i + 1) % log_every == 0:
+                print(f"  iter {i + 1:5d}  mean -ELBO/partition: {float(loss):.4f}")
+    return PSVGPState(state.params, state.opt._replace(step=end[1]), end[0])
+
+
+def _warm_up(static: PSVGPStatic, state: PSVGPState, data: PartitionedData, seed: int,
+             n: int) -> PSVGPState:
+    """``n`` eager steps before a capture: on CUDA on a side stream, as
+    torch asks of a capture's warm-up, then joined to the current stream."""
+    dev = data.x.device
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    if side is not None:
+        side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
+        for _ in range(n):
+            state, _loss = train_step(static, state, data, seed)
+    if side is not None:
+        torch.cuda.current_stream(dev).wait_stream(side)
     return state
+
+
+def device_counters(state: PSVGPState, device) -> PSVGPState:
+    """``state`` with its int counters as int64 tensors of shape () on
+    ``device`` (each a fill kernel, not a host-to-device copy)."""
+
+    def counter(n: int) -> torch.Tensor:
+        return torch.full((), int(n), dtype=torch.int64, device=device)
+
+    return PSVGPState(state.params, state.opt._replace(step=counter(state.opt.step)),
+                      counter(state.step))
+
+
+class CapturedStep:
+    """One SGD step over static state buffers, replayed.
+
+    The buffers are clones of ``state`` (counters as device tensors, see
+    :func:`fit`). A step reads them, computes the new state out of place
+    and copies it back into them, counters included, so replay t draws
+    step t's numbers. On CUDA the step is captured once into a
+    ``torch.cuda.CUDAGraph`` (on the capture's own stream; lazy
+    initialization must have run, e.g. by eager steps on a side stream)
+    and :meth:`replay` launches the graph; on the CPU :meth:`replay` runs
+    the same step eagerly. The projection kernel's wrapper ran once, at
+    capture, when nothing launched: ``svgp_proj.LAUNCHES`` counts the
+    launches each replay makes instead."""
+
+    def __init__(self, static: PSVGPStatic, state: PSVGPState, data: PartitionedData,
+                 seed: int | None = None):
+        self.static, self.data = static, data
+        self.seed = static.cfg.seed if seed is None else seed
+        self.buffers = tree_map(torch.clone, state)
+        self.graph = None
+        self.launches: dict = {}
+        if data.x.device.type == "cuda":
+            self.graph = torch.cuda.CUDAGraph()
+            before = dict(svgp_proj.LAUNCHES)
+            with torch.cuda.graph(self.graph):
+                self._step()
+            self.launches = svgp_proj.captured_launches(before)
+
+    def _step(self) -> None:
+        new, _loss = train_step(self.static, self.buffers, self.data, self.seed)
+        for dst, src in zip(tree_leaves(self.buffers), tree_leaves(new), strict=True):
+            dst.copy_(src)
+
+    def replay(self, n: int = 1) -> None:
+        """Run ``n`` more steps."""
+        for _ in range(n):
+            if self.graph is None:
+                self._step()
+            else:
+                self.graph.replay()
+        svgp_proj.count_replays(self.launches, n)
+
+    def state(self) -> PSVGPState:
+        """A fresh copy of the state (counters still device tensors)."""
+        return tree_map(torch.clone, self.buffers)
 
 
 def params_from_numpy(arrays: dict, prefix: str, device) -> svgp.SVGPParams:

@@ -11,11 +11,14 @@ Port of ``repro.core.sampler``. Per iteration and per partition j:
 
 The draws are the JAX package's: a Gumbel-max categorical for the slot and
 the top-B of uniform scores (padded rows pushed below every valid row) for
-the rows. The bits are not: a ``torch.Generator`` on the tensors' device
-replaces threefry, so the two packages agree in distribution, and tests
-compare steps by feeding both the same draws. :func:`step_generator` makes
-the stream a function of (seed, step) alone, as ``fold_in(key, step)``
-does, so a warm refit never replays step 0's batches.
+the rows. The bits are not: threefry is replaced by counter-based uniforms
+(:class:`StepDraws`), so the two packages agree in distribution, and tests
+compare steps by feeding both the same draws. A step's uniforms are a
+function of (seed, step, draw, element) alone, computed with torch integer
+ops from a step counter that may live on the device — as
+``fold_in(key, step)`` does, a warm refit never replays step 0's batches,
+and a CUDA graph of the step draws step t's numbers at its t-th replay.
+The bits are the same on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -39,11 +42,57 @@ def stream_seed(seed: int, stream: str, step: int = 0) -> int:
     return int.from_bytes(digest.digest(), "little") >> 1
 
 
-def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
-    """The generator of SGD step ``step`` of a run seeded ``seed``."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(stream_seed(seed, "step", step))
-    return gen
+def _int64(c: int) -> int:
+    """The two's-complement int64 of an unsigned 64-bit constant."""
+    c &= (1 << 64) - 1
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+_GOLDEN = _int64(0x9E3779B97F4A7C15)  # SplitMix64's increment
+_MIX1 = _int64(0xBF58476D1CE4E5B9)
+_MIX2 = _int64(0x94D049BB133111EB)
+_DRAW = _int64(0xD1B54A32D192ED03)  # spaces the draws of one step apart
+
+
+def _shr(z: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's ``>>`` is arithmetic)."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def mix64(z: torch.Tensor) -> torch.Tensor:
+    """SplitMix64's output function on int64 tensors (multiplies wrap
+    modulo 2^64 on the CPU and the card alike): a bijection of 64-bit words
+    whose outputs on consecutive counters pass BigCrush."""
+    z = (z ^ _shr(z, 30)) * _MIX1
+    z = (z ^ _shr(z, 27)) * _MIX2
+    return z ^ _shr(z, 31)
+
+
+class StepDraws:
+    """The uniforms of one SGD step: draw k of the step (the k-th call of
+    :meth:`uniform`) is element i's SplitMix64 output at counter i + 1 from
+    a start that mixes (seed, step, k). ``step`` is a Python int or an
+    int64 tensor of shape () on ``device`` (read on the device, never on
+    the host, so a captured step reads the counter of its replay)."""
+
+    def __init__(self, seed: int, step, device: torch.device):
+        if not isinstance(step, torch.Tensor):
+            step = torch.full((), int(step), dtype=torch.int64, device=device)
+        self.device = torch.device(device)
+        self.start = mix64(step * _GOLDEN + stream_seed(seed, "step"))
+        self.calls = 0
+
+    def uniform(self, shape: tuple) -> torch.Tensor:
+        """float32 uniforms in [0, 1) of ``shape``: the top 24 bits of each
+        output times 2^-24, exact in float32."""
+        n = 1
+        for s in shape:
+            n *= s
+        start = self.start + _int64(self.calls * _DRAW)
+        self.calls += 1
+        ctr = torch.arange(1, n + 1, dtype=torch.int64, device=self.device) * _GOLDEN
+        bits = _shr(mix64(ctr + start), 40)
+        return (bits.to(torch.float32) * (1.0 / (1 << 24))).reshape(shape)
 
 
 def slot_distribution(
@@ -64,33 +113,33 @@ def slot_distribution(
     return SlotDistribution(probs=probs, n_eff=n_eff, neighbor_tbl=neighbor_tbl)
 
 
-def gumbel(shape: tuple, gen: torch.Generator, device: torch.device) -> torch.Tensor:
+def gumbel(shape: tuple, draws: StepDraws) -> torch.Tensor:
     """Standard Gumbel noise -log(-log u), u uniform in [tiny, 1)."""
-    u = torch.rand(shape, generator=gen, device=device)
+    u = draws.uniform(shape)
     return -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(u.dtype).tiny)))
 
 
-def categorical(logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+def categorical(logits: torch.Tensor, draws: StepDraws) -> torch.Tensor:
     """One Gumbel-max draw per row of ``logits`` (..., K) -> (...) int64."""
-    return torch.argmax(logits + gumbel(tuple(logits.shape), gen, logits.device), dim=-1)
+    return torch.argmax(logits + gumbel(tuple(logits.shape), draws), dim=-1)
 
 
-def sample_slots(gen: torch.Generator, dist: SlotDistribution) -> tuple[torch.Tensor, torch.Tensor]:
+def sample_slots(draws: StepDraws, dist: SlotDistribution) -> tuple[torch.Tensor, torch.Tensor]:
     """k' sampling for every partition -> ((P,) source partitions, (P,) slots)."""
-    slot = categorical(torch.log(torch.clamp_min(dist.probs, 1e-30)), gen)
+    slot = categorical(torch.log(torch.clamp_min(dist.probs, 1e-30)), draws)
     return torch.gather(dist.neighbor_tbl, 1, slot[:, None])[:, 0], slot
 
 
 def sample_row_indices(
-    gen: torch.Generator, mask_row: torch.Tensor, batch: int
+    draws: StepDraws, mask_row: torch.Tensor, batch: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Single-row version: (n_max,) mask -> (B,) indices + validity."""
-    idx, valid = sample_minibatch_indices(gen, mask_row[None], batch)
+    idx, valid = sample_minibatch_indices(draws, mask_row[None], batch)
     return idx[0], valid[0]
 
 
 def sample_minibatch_indices(
-    gen: torch.Generator, mask_rows: torch.Tensor, batch: int
+    draws: StepDraws, mask_rows: torch.Tensor, batch: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Uniform WITHOUT-replacement indices from masked rows.
 
@@ -99,7 +148,7 @@ def sample_minibatch_indices(
     validity — a source with fewer than B points fills the surplus with
     padded rows (bmask 0), i.e. the batch degrades to "all n_k points".
     """
-    scores = torch.rand(tuple(mask_rows.shape), generator=gen, device=mask_rows.device)
+    scores = draws.uniform(tuple(mask_rows.shape))
     scores = scores + (mask_rows - 1.0) * 1e9
     idx = torch.topk(scores, batch, dim=1).indices
     return idx, torch.gather(mask_rows, 1, idx)

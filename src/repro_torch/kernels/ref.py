@@ -50,6 +50,30 @@ def svgp_projection(
     return knm, lk_t, q_diag
 
 
+def row_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., Q, m) times b (..., n, m) transposed -> (..., Q, n) in
+    float64: entry (q, i) = sum_j a[q, j] b[i, j], summed in the order
+    j = 0, 1, ... with one rounded add a term (the product of two float32
+    factors is exact in float64, so a fused multiply-add rounds the same).
+    A row's sum is a function of that row alone, at any Q and any leading
+    shape (a batched matmul picks its blocking, hence its rounding, by the
+    whole shape), and rounds once into float32, at the caller."""
+    a, b = a.double(), b.double()
+    acc = a[..., :, :1] * b[..., None, :, 0]
+    for j in range(1, a.shape[-1]):
+        acc.addcmul_(a[..., :, j:j + 1], b[..., None, :, j])
+    return acc
+
+
+def row_sumsq(a: torch.Tensor) -> torch.Tensor:
+    """(..., Q, n) -> (..., Q): sum_i a_i^2 in the order i = 0, 1, ...,
+    in ``a``'s dtype."""
+    acc = a[..., 0] * a[..., 0]
+    for i in range(1, a.shape[-1]):
+        acc = acc + a[..., i] * a[..., i]
+    return acc
+
+
 def posterior_predict(
     x: torch.Tensor,
     z: torch.Tensor,
@@ -65,17 +89,22 @@ def posterior_predict(
     (see repro_torch.core.posterior). x (Q, d) -> (Q,) pairs:
       mean  K(X*,Z) @ c
       fvar  k_** - ||W k_*||^2 + ||U k_*||^2   (un-clamped)
+
+    Each row is summed in one fixed order over the inducing index, in
+    float64 from the float32 K(X*, Z), and rounded once (:func:`row_products`),
+    so a row's answer is bitwise the same whatever Q and the leading axes
+    are: the serving lanes' coalescing and q_max growth hold bitwise on the
+    CPU, as the CUDA kernels' one multiply-add sequence a row holds them
+    on the card.
     """
     knm = rbf_cross_cov(x, z, log_lengthscale, log_variance)
-    mean = (knm @ c[..., :, None])[..., 0]
-    lk = knm @ w.mT
-    su = knm @ u.mT
+    mean = row_products(knm, c[..., None, :])[..., 0]
     fvar = (
-        torch.exp(log_variance)[..., None]
-        - torch.sum(lk * lk, dim=-1)
-        + torch.sum(su * su, dim=-1)
+        torch.exp(log_variance).double()[..., None]
+        - row_sumsq(row_products(knm, w))
+        + row_sumsq(row_products(knm, u))
     )
-    return mean, fvar
+    return mean.to(knm.dtype), fvar.to(knm.dtype)
 
 
 def posterior_predict_slots(hx, z, log_lengthscale, log_variance, w, u, c):

@@ -155,6 +155,30 @@ def test_plain_masked_oracle_matches_jax_and_is_row_independent():
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
+@pytest.mark.parametrize("q,q_big", [(16, 64), (64, 256), (32, 216)])
+def test_plain_slots_rows_are_bitwise_the_same_at_any_q_max(q, q_big):
+    """The CPU lanes sum every row in one fixed order: the first q rows of
+    a q_big block equal the same rows of a q block bitwise (P = S = 9,
+    m = 4, d = 2), through the kernel lanes' plain version and through the
+    "ref" lane (``posterior.predict_cached_slots_stacked``)."""
+    from repro_torch.core import posterior
+    from repro_torch.gp.covariances import CovarianceParams, rbf
+
+    rng = np.random.default_rng(q_big)
+    f = _t(_factors(rng, (9,), 4, 2))
+    f[5] = f[5] * 30.0  # fitted means cancel: sum_j |k_j c_j| >> |mean|
+    hx = torch.as_tensor(rng.uniform(0, 2, (9, 9, q_big, 2)).astype(np.float32))
+    small = hx[:, :, :q].contiguous()
+    cache = posterior.PosteriorCache(z=f[0], w=f[3], u=f[4], c=f[5],
+                                     cov=CovarianceParams(f[1], f[2]),
+                                     log_beta=torch.zeros(9))
+    for lane in (lambda x: ref.posterior_predict_slots_stacked(x, *f),
+                 lambda x: posterior.predict_cached_slots_stacked(cache, rbf, x)):
+        big_out, small_out = lane(hx), lane(small)
+        for b, a in zip(big_out, small_out, strict=True):
+            assert torch.equal(b[:, :, :q], a)
+
+
 def test_cpu_tensors_dispatch_to_the_plain_versions_without_launching():
     rng = np.random.default_rng(5)
     f = _t(_factors(rng, (), 5, 2))

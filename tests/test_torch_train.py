@@ -10,10 +10,12 @@ a few hundred points, B = 8, m <= 6):
     ``psvgp.state_from_numpy`` and the JAX step's own draws (the sampler
     under the step's folded key) fed into the port's step — loss, Adam
     moments (hence gradients) and new params agree, for both comm modes.
-    A torch generator cannot reproduce threefry's bits, so this is how
-    training parity is tested;
-  * the port's own sampler: the same distributions, and a stream that is a
-    function of (seed, step);
+    The port's counter-based draws cannot reproduce threefry's bits, so
+    this is how training parity is tested (with the counters as host ints
+    and as the device tensors a captured step holds);
+  * the port's own sampler: the same distributions, and counter-based
+    draws that are a function of (seed, step) (an int or a device counter)
+    with SplitMix64's bits;
   * routing tables, partitioning and boundary probes bitwise; the metrics
     on the committed artifact; a port-saved artifact loading and serving
     in the JAX package; refit(scratch) == fit bitwise; no silent CPU.
@@ -101,6 +103,20 @@ def test_likelihoods_match_jax():
     got = tlik.poisson_expected_loglik(*map(torch.as_tensor, (y, fmean, fvar)))
     _close(got, jlik.poisson_expected_loglik(y, fmean, fvar), rtol=2e-5)
     assert (fmean + 0.5 * fvar > 15).any()
+
+
+def test_poisson_quadrature_matches_jax_and_the_closed_form():
+    """The JAX package's check (tests/test_likelihoods.py): the closed form
+    against its quadrature within 1e-3, on the port; the quadrature against
+    the JAX one within float32 rounding."""
+    rng = np.random.default_rng(0)
+    fmean = rng.normal(0, 1, 50).astype(np.float32)
+    fvar = rng.uniform(0.01, 0.5, 50).astype(np.float32)
+    y = rng.poisson(np.exp(fmean)).astype(np.float32)
+    args = tuple(map(torch.as_tensor, (y, fmean, fvar)))
+    quad = tlik.poisson_expected_loglik_quadrature(*args)
+    _close(quad, jlik.poisson_expected_loglik_quadrature(y, fmean, fvar), rtol=1e-5, atol=1e-5)
+    _close(tlik.poisson_expected_loglik(*args), quad.numpy(), rtol=1e-3, atol=1e-3)
 
 
 def _model(rng, P: int, m: int, B: int):
@@ -237,12 +253,23 @@ def test_one_step_by_injection_matches_jax(comm, use_pallas):
     step_by_injection(comm, use_pallas)
 
 
-def step_by_injection(comm: str, use_pallas: bool, param_atol: float = 1e-5, **setup) -> None:
+@pytest.mark.parametrize("comm", ["gather", "ppermute"])
+def test_one_step_with_device_counters_matches_jax(comm):
+    """The counters as the captured step holds them (int64 tensors, Adam's
+    bias corrections computed from the tensor) give the same step."""
+    step_by_injection(comm, False, device_counters=True)
+
+
+def step_by_injection(comm: str, use_pallas: bool, param_atol: float = 1e-5,
+                      device_counters: bool = False, **setup) -> None:
     """One SGD step of the JAX package and of the port from the same state,
     the port fed the JAX step's draws; states held to each other as in
-    :func:`_assert_states_agree`. ``setup`` goes to :func:`_jax_setup`."""
+    :func:`_assert_states_agree`. ``setup`` goes to :func:`_jax_setup`;
+    ``device_counters`` carries the port's counters as int64 tensors."""
     ds, g, cfg, data, static, state = _jax_setup(comm, use_pallas, **setup)
     tdata, tstatic, tstate = _port_twin(ds, g, cfg, state)
+    if device_counters:
+        tstate = psvgp.device_counters(tstate, tdata.x.device)
     key = jax.random.PRNGKey(cfg.seed)
     k1, k2 = jax.random.split(jax.random.fold_in(key, state.step))
     B = cfg.batch_size
@@ -264,7 +291,8 @@ def step_by_injection(comm: str, use_pallas: bool, param_atol: float = 1e-5, **s
             tstatic.p_dir, tstatic.cfg, tstatic.cov_fn,
             draws=(torch.as_tensor(np.asarray(d)).long(), torch.as_tensor(np.asarray(idx)).long()),
         )
-    assert got.step == int(new.step) == int(state.step) + 1
+    assert int(got.step) == int(new.step) == int(state.step) + 1
+    assert int(got.opt.step) == int(new.opt.step)
     _close(tloss, loss, rtol=1e-5, what="loss")
     _assert_states_agree(got, new, param_atol)
 
@@ -292,7 +320,7 @@ def test_port_sampler_draws_the_jax_distributions():
         jnp.asarray(tdata.counts.numpy()), jnp.asarray(tbl.numpy()), 0.5)
     _close(dist.probs, jdist.probs, rtol=1e-6, atol=1e-7)
     _close(dist.n_eff, jdist.n_eff, rtol=1e-6)
-    gen = sampler.step_generator(0, 0, torch.device("cpu"))
+    gen = sampler.StepDraws(0, 0, torch.device("cpu"))
     draws = torch.stack([sampler.sample_slots(gen, dist)[1] for _ in range(4000)])
     freq = torch.stack([(draws == s).float().mean(0) for s in range(5)], dim=1)
     assert float((freq - dist.probs).abs().max()) < 0.035  # ~4.5 sigma at 4,000 draws
@@ -318,15 +346,40 @@ def test_port_step_stream_depends_on_seed_and_step_only():
     ds, g = _small_problem()
     tgrid = partition.PartitionGrid(g.gx, g.gy, g.x_edges, g.y_edges, g.wrap_x)
     mask = partition.partition_data(ds.x, ds.y, tgrid).mask
+    cpu = torch.device("cpu")
 
     def batch(seed, step):
-        return sampler.sample_minibatch_indices(
-            sampler.step_generator(seed, step, torch.device("cpu")), mask, 8)[0]
+        return sampler.sample_minibatch_indices(sampler.StepDraws(seed, step, cpu), mask, 8)[0]
 
     assert torch.equal(batch(0, 5), batch(0, 5))
     assert not torch.equal(batch(0, 5), batch(0, 6))
     assert not torch.equal(batch(0, 5), batch(1, 5))
     assert sampler.stream_seed(0, "init") != sampler.stream_seed(0, "step", 0)
+    # a counter held in a device tensor (what a captured step reads) draws
+    # what the host int draws; successive draws of a step differ
+    counter = torch.full((), 5, dtype=torch.int64)
+    assert torch.equal(
+        sampler.sample_minibatch_indices(sampler.StepDraws(0, counter, cpu), mask, 8)[0],
+        batch(0, 5))
+    rand = sampler.StepDraws(0, 5, cpu)
+    assert not torch.equal(rand.uniform((64,)), rand.uniform((64,)))
+    # the bits: SplitMix64 outputs, so the CPU and the card draw the same
+    # numbers (int64 multiplies wrap the same way on both)
+    full = (1 << 64) - 1
+
+    def splitmix(z):
+        z &= full
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & full
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & full
+        return z ^ (z >> 31)
+
+    golden = 0x9E3779B97F4A7C15
+    start = splitmix(5 * golden + sampler.stream_seed(7, "step"))
+    start += 0xD1B54A32D192ED03  # the step's second draw
+    want = [(splitmix(start + i * golden) >> 40) / 2**24 for i in range(1, 33)]
+    rand = sampler.StepDraws(7, 5, cpu)
+    rand.uniform((3,))
+    assert rand.uniform((4, 8)).flatten().tolist() == want
 
 
 # ---------------------------------------------------------------------------
