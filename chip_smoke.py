@@ -73,6 +73,20 @@ Phases, each printed as it runs; any failure exits non-zero:
               Server.submit, 413/400/400/429, a swap under wire load),
               gp/exact.py against the SVGP at Z = X, and a train-state
               resume bitwise the uninterrupted fit.
+  8. entry    the port's entry points and example twins, each a subprocess
+              on the card at full width: python -m repro_torch.api.smoke;
+              python -m repro_torch.launch.serve --gp [--sharded] and
+              python -m repro_torch.launch.serve_sharded (two-level router,
+              zipf 1.1) on the committed 400-cell artifact with 50 requests
+              of 4,096 points; examples/delta_sweep_torch.py at its defaults
+              (the Fig. 4 sweep, both comm modes); examples/
+              e3sm_insitu_torch.py --sim-steps 3. Any non-zero exit fails.
+  9. mesh     the halo mesh: a 4 x 4 model (m 5, 150 steps) served by 16
+              spawned ranks over gloo, all on the card, one cell each, 20
+              uniform 4,096-point requests serial and pipelined: bitwise the
+              one-process halo program, one slots launch a rank a request
+              (wrapper and torch.profiler), cache bytes a rank total / 16;
+              p50 per request and the exchange's share of it.
 
 Tolerances (``repro_torch.kernels.ref.tolerance_ratio``): float32 rounding
 scaled by the magnitude of the terms each output sums — prediction: per
@@ -1312,6 +1326,304 @@ def wide_times(torch, dev, card: str, report: dict) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------
+# 8. the entry points and examples, each a subprocess on the card
+# --------------------------------------------------------------------------
+
+ENTRY_TIMEOUT_S = 400
+
+
+def entry_point_commands() -> list:
+    """(label, argv after the interpreter) of phase 8, at full width: the
+    paper's 400-cell artifact (m 5) under 4,096-point requests, the Fig. 4
+    delta sweep at its defaults (12,000 points, 10 x 10 cells, m 5), the
+    in-situ loop. Every command runs on its default device, cuda."""
+    art = ["--gp-artifact", FIXTURE, "--gp-batch", "4096", "--gp-requests", "50"]
+    return [
+        ("api.smoke", ["-m", "repro_torch.api.smoke"]),
+        ("serve --gp", ["-m", "repro_torch.launch.serve", "--gp", *art]),
+        ("serve --gp --sharded", ["-m", "repro_torch.launch.serve", "--gp", "--sharded", *art]),
+        ("serve_sharded two-level zipf 1.1",
+         ["-m", "repro_torch.launch.serve_sharded", *art, "--gp-skew", "1.1",
+          "--gp-router", "two-level"]),
+        ("delta_sweep gather", ["examples/delta_sweep_torch.py"]),
+        ("delta_sweep ppermute", ["examples/delta_sweep_torch.py", "--comm", "ppermute"]),
+        ("e3sm_insitu 3 steps", ["examples/e3sm_insitu_torch.py", "--sim-steps", "3"]),
+    ]
+
+
+_LATENCY = re.compile(r"latency/request ms: p50=([0-9.]+) p95=([0-9.]+) p99=([0-9.]+)")
+_RATIO = re.compile(r"tolerance ratio mean ([0-9.e+-]+) var ([0-9.e+-]+)")
+_SWEEP_ROW = re.compile(r"^\s*([0-9.]+) \|\s*(\S+) \|\s*(\S+) \|\s*([0-9.]+) \|", re.MULTILINE)
+
+
+def parse_entry_point(label: str, out: str) -> dict:
+    """What phase 8 reads from a command's standard output, checked."""
+    rec: dict = {}
+    lat = _LATENCY.search(out)
+    if lat:
+        rec["latency_ms"] = {"p50_ms": float(lat.group(1)), "p95_ms": float(lat.group(2)),
+                             "p99_ms": float(lat.group(3))}
+    if label.startswith("serve"):
+        check(lat is not None, f"{label}: no latency report")
+    if "sharded" in label:
+        ratio = _RATIO.search(out)
+        check(ratio is not None and "lane: one-process halo program" in out,
+              f"{label}: no warm-up check or lane line")
+        rec["tolerance_ratio"] = [float(ratio.group(1)), float(ratio.group(2))]
+        check(max(rec["tolerance_ratio"]) <= 1, f"{label}: sharded != replicated")
+    if label == "api.smoke":
+        check("api-smoke OK" in out and "fused backend" in out, "api.smoke: no OK on the fused lane")
+    if label.startswith("delta_sweep"):
+        rows = [(float(a), float(b), float(c), float(d)) for a, b, c, d in _SWEEP_ROW.findall(out)]
+        check([r[0] for r in rows] == [0.0, 0.125, 0.5, 1.0], f"{label}: rows {rows}")
+        check(all(np.isfinite(r[1:]).all() for r in rows), f"{label}: a non-finite metric")
+        rec["sweep"] = [{"delta": r[0], "rmspe": r[1], "boundary_rmsd": r[2], "fit_s": r[3]}
+                        for r in rows]
+    if label.startswith("e3sm_insitu"):
+        check("replays bitwise" in out, "e3sm_insitu: the store's replay differs")
+        rec["refit_s"] = [float(v) for v in re.findall(r"refit \d+ iters in ([0-9.]+)s", out)]
+        check(len(rec["refit_s"]) == 2, f"e3sm_insitu: refits {rec['refit_s']}")
+    return rec
+
+
+def entry_points_phase(card: str, report: dict, commands=None) -> None:
+    """Phase 8: every command of :func:`entry_point_commands` as a
+    subprocess from the checkout; a non-zero exit or a failed check of its
+    output fails the phase. Prints each command's seconds and its p50/p95
+    or fit seconds."""
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE")}
+    env["PYTHONPATH"] = SRC
+    report["entry_points"] = {}
+    for label, argv in commands or entry_point_commands():
+        t0 = time.perf_counter()
+        try:
+            r = subprocess.run([sys.executable, *argv], cwd=REPO, env=env, capture_output=True,
+                               text=True, timeout=ENTRY_TIMEOUT_S)
+        except subprocess.TimeoutExpired as e:
+            raise SmokeFailure(f"{label}: no exit within {ENTRY_TIMEOUT_S} s") from e
+        seconds = time.perf_counter() - t0
+        check(r.returncode == 0, f"{label} exited {r.returncode}:\n{r.stderr[-3000:]}")
+        rec = {"argv": argv, "seconds": seconds, **parse_entry_point(label, r.stdout)}
+        report["entry_points"][label] = rec
+        what = ""
+        if "latency_ms" in rec:
+            what = f"p50 {rec['latency_ms']['p50_ms']} ms, p95 {rec['latency_ms']['p95_ms']} ms"
+        if "tolerance_ratio" in rec:
+            what += f", vs replicated tol ratio {max(rec['tolerance_ratio']):.4f}"
+        if "sweep" in rec:
+            what = "; ".join(f"delta {s['delta']}: RMSPE {s['rmspe']}, bRMSD "
+                             f"{s['boundary_rmsd']}, fit {s['fit_s']} s" for s in rec["sweep"])
+        if "refit_s" in rec:
+            what = "refits " + ", ".join(f"{s} s" for s in rec["refit_s"])
+        print(f"[entry] [{card}] {label}: {seconds:.3f} s; {what}")
+
+
+# --------------------------------------------------------------------------
+# 9. the halo mesh: one cell per rank, 16 ranks over gloo on one card
+# --------------------------------------------------------------------------
+
+MESH_SIDE = 4
+MESH_REQUESTS = 20
+MESH_PROFILED = 5
+MESH_JOIN_S = 300
+
+
+def _digest(results: list) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for mean, var in results:
+        h.update(np.ascontiguousarray(mean).tobytes())
+        h.update(np.ascontiguousarray(var).tobytes())
+    return h.hexdigest()
+
+
+def mesh_rank(rank: int, world: int, store: str, artifact: str, reqs_file: str,
+              out_dir: str, device: str) -> None:
+    """One rank of phase 9 (a spawned process): serve the requests on the
+    mesh lane, serial then pipelined, count its slots launches by wrapper
+    and by profiler, and write what it saw to ``out_dir``."""
+    import pickle
+    import traceback
+
+    import torch
+
+    torch.set_num_threads(1)
+    try:
+        import torch.distributed as dist
+
+        from repro_torch import api
+        from repro_torch.kernels import predict
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                                world_size=world)
+        try:
+            reqs = list(np.load(reqs_file)["reqs"])
+            fitted = api.FittedPSVGP.load(artifact, device=device)
+            out: dict = {}
+            for pipeline in ("serial", "pipelined"):
+                server = api.Server(fitted, api.ServeConfig(mode="sharded", pipeline=pipeline),
+                                    group=dist.group.WORLD)
+                server.submit(reqs[0])  # warm-up, not counted
+                server.reset_stats()
+                predict.reset_launches()
+                res: list = []
+                t0 = time.perf_counter()
+                rec = server.stream(reqs, warm=False, on_result=lambda i, r, res=res: res.append(r))
+                wall = time.perf_counter() - t0
+                out[pipeline] = {
+                    "digest": _digest(res), "latency_ms": rec["latency_ms"], "wall_s": wall,
+                    "mesh": server.stats()["mesh"], "launches": dict(predict.LAUNCHES),
+                    "qmax": rec["qmax_policy"], "backend": server.backend,
+                }
+                if rank == 0:
+                    out[pipeline]["results"] = res
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for q in reqs[:MESH_PROFILED]:
+                    server.submit(q)
+            on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            out["profiler"] = {
+                "device_events": len(on_card),
+                "slots_kernels": sum("predict_kernel" in e.name or "predict_wide_kernel" in e.name
+                                     for e in on_card),
+            }
+            out["cache_bytes"] = server.cache_bytes
+            out["cell"] = server.mesh.cell
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # noqa: BLE001 — the parent reads and raises it
+        out = {"error": traceback.format_exc()}
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def mesh_phase(torch, dev, card: str, report: dict, rank_fn=None) -> None:
+    """Phase 9: a 4 x 4 model (m 5, 150 steps) served by 16 spawned ranks
+    over gloo, all on ``dev``, each launching the slots kernel for its cell:
+    every answer bitwise the one-process halo program's, pipelined ==
+    serial, one slots launch a rank a request (wrapper and profiler),
+    per-rank cache bytes total / 16; p50 per request and the exchange's
+    share of it."""
+    import multiprocessing as mp
+    import pickle
+
+    from repro_torch import api
+    from repro_torch.data.spatial import e3sm_like_field
+    from repro_torch.launch import serve_sharded as ss
+
+    world = MESH_SIDE * MESH_SIDE
+    fitted = api.fit(api.FitConfig(grid=MESH_SIDE, m=5, train_iters=150, seed=0),
+                     e3sm_like_field(n=1500, seed=0), device=dev)
+    reqs = [_uniform(fitted.grid, 4096, 200 + i) for i in range(MESH_REQUESTS)]
+    want = {}
+    for pipeline in ("serial", "pipelined"):
+        one = api.Server(fitted, api.ServeConfig(mode="sharded", pipeline=pipeline))
+        one.submit(reqs[0])
+        res: list = []
+        rec = one.stream(reqs, warm=False, on_result=lambda i, r, res=res: res.append(r))
+        want[pipeline] = (res, rec["latency_ms"])
+    with tempfile.TemporaryDirectory() as tmp:
+        artifact = fitted.save(os.path.join(tmp, "artifact"))
+        reqs_file = os.path.join(tmp, "reqs.npz")
+        np.savez(reqs_file, reqs=np.stack(reqs))
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=rank_fn or mesh_rank,
+                             args=(r, world, os.path.join(tmp, "store"), artifact, reqs_file, tmp,
+                                   str(dev)))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(MESH_JOIN_S)
+            alive = [r for r, p in enumerate(procs) if p.is_alive()]
+            check(not alive, f"mesh: ranks {alive} still running after {MESH_JOIN_S} s")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            path = os.path.join(tmp, f"rank{r}.pkl")
+            check(os.path.exists(path), f"mesh: rank {r} wrote nothing (exit {procs[r].exitcode})")
+            with open(path, "rb") as f:
+                ranks.append(pickle.load(f))
+            check("error" not in ranks[r], f"mesh: rank {r} failed:\n{ranks[r].get('error')}")
+    check(all(p.exitcode == 0 for p in procs), f"mesh: exit codes {[p.exitcode for p in procs]}")
+
+    total, _ = ss.cache_memory_bytes(fitted.cache)
+    rec: dict = {"ranks": world, "requests": MESH_REQUESTS, "spawn_and_serve_s": spawn_s}
+    for pipeline in ("serial", "pipelined"):
+        got = ranks[0][pipeline]["results"]
+        same = all(_equal(a, b) for a, b in zip(got, want[pipeline][0], strict=True))
+        check(same, f"mesh {pipeline}: rank 0's answers differ from the one-process program's")
+        digests = {r[pipeline]["digest"] for r in ranks}
+        check(digests == {_digest(got)}, f"mesh {pipeline}: the ranks' answers differ")
+        check(len({json.dumps(r[pipeline]["qmax"], sort_keys=True) for r in ranks}) == 1,
+              f"mesh {pipeline}: the ranks' q_max differ")
+        for r, rk in enumerate(ranks):
+            check(rk[pipeline]["backend"] == "fused", f"mesh: rank {r} on {rk[pipeline]['backend']}")
+            check(rk[pipeline]["launches"]["posterior_predict_slots"] == MESH_REQUESTS,
+                  f"mesh {pipeline}: rank {r} launched the slots kernel "
+                  f"{rk[pipeline]['launches']} times for {MESH_REQUESTS} requests")
+            check(rk[pipeline]["mesh"]["shifts"] == 4 * MESH_REQUESTS,
+                  f"mesh {pipeline}: rank {r} made {rk[pipeline]['mesh']['shifts']} shifts")
+        lat = [r[pipeline]["latency_ms"]["p50_ms"] for r in ranks]
+        walls = [r[pipeline]["wall_s"] for r in ranks]
+        def share(key, walls=walls, pipeline=pipeline):
+            return [r[pipeline]["mesh"][key] / w for r, w in zip(ranks, walls, strict=True)]
+
+        shift_share, gather_share, wait_share = share("exchange_s"), share("gather_s"), share("wait_s")
+        rec[pipeline] = {
+            "p50_ms_rank0": ranks[0][pipeline]["latency_ms"]["p50_ms"],
+            "p95_ms_rank0": ranks[0][pipeline]["latency_ms"]["p95_ms"],
+            "p50_ms_ranks": [min(lat), max(lat)],
+            "shift_share_ranks": [min(shift_share), max(shift_share)],
+            "gather_share_ranks": [min(gather_share), max(gather_share)],
+            "device_wait_share_ranks": [min(wait_share), max(wait_share)],
+            "one_process_p50_ms": want[pipeline][1]["p50_ms"],
+        }
+        print(f"[mesh] [{card}] {world} ranks, {pipeline}: {MESH_REQUESTS} x 4,096-point requests "
+              f"bitwise the one-process program (p50 {want[pipeline][1]['p50_ms']:.4f} ms) on every "
+              f"rank; p50 {rec[pipeline]['p50_ms_rank0']:.4f} ms (ranks "
+              f"{min(lat):.4f}-{max(lat):.4f}), the 4 shifts {min(shift_share):.4f}-"
+              f"{max(shift_share):.4f}, the all-gather {min(gather_share):.4f}-"
+              f"{max(gather_share):.4f} and the wait for the rank's own evaluation "
+              f"{min(wait_share):.4f}-{max(wait_share):.4f} of the stream's wall time (each "
+              "collective's share includes the wait for the slowest rank); 1 slots launch a "
+              "rank a request")
+    same = all(_equal(a, b) for a, b in zip(ranks[0]["serial"]["results"],
+                                            ranks[0]["pipelined"]["results"], strict=True))
+    check(same, "mesh: pipelined != serial")
+    for r, rk in enumerate(ranks):
+        check(rk["cache_bytes"] == (total, total // world),
+              f"mesh: rank {r} cache bytes {rk['cache_bytes']}, total {total}")
+        check(tuple(rk["cell"]) == (r % MESH_SIDE, r // MESH_SIDE), f"mesh: rank {r} cell")
+    seen = [rk["profiler"] for rk in ranks]
+    if all(s["device_events"] > 0 for s in seen):
+        check(all(s["slots_kernels"] == MESH_PROFILED for s in seen),
+              f"mesh: the profiler saw {[s['slots_kernels'] for s in seen]} slots kernels in "
+              f"{MESH_PROFILED} requests a rank")
+        rec["profiler_slots_per_request"] = 1
+        print(f"[mesh] [{card}] torch.profiler in every rank: {MESH_PROFILED} slots kernels in "
+              f"{MESH_PROFILED} requests")
+    else:
+        rec["profiler_slots_per_request"] = None
+        print(f"[mesh] [{card}] torch.profiler saw no device activity in some rank: slots "
+              "launches by profiler not measured (the wrappers' counts stand)")
+    rec["cache_bytes"] = [total, total // world]
+    print(f"[mesh] [{card}] pipelined == serial; cache {total} B total, {total // world} B a rank "
+          f"(1/{world}); spawn + serve {spawn_s:.3f} s")
+    report["mesh"] = rec
+
+
 def run(report: dict) -> None:
     import torch
 
@@ -1628,6 +1940,10 @@ def run(report: dict) -> None:
     # -- 7. the in-situ lifecycle and its front doors (after the times, so
     # that they are taken in the process state of the earlier slices) -----
     lifecycle_slice(torch, dev, card, report, trained, ds)
+
+    # -- 8. the entry points and examples; 9. the halo mesh -----------------
+    entry_points_phase(card, report)
+    mesh_phase(torch, dev, card, report)
     report["times"] = [
         {"name": n, "shape": list(s), "label": lab, "ms": k, "plain_ms": p,
          "bound_ms": b, "bound_by": by, "floor_ms": report["floor_ms"]}

@@ -1,4 +1,4 @@
-"""``Server`` — one front door for serving a fitted PSVGP on one device.
+"""``Server`` — one front door for serving a fitted PSVGP.
 
     server = Server(fitted, ServeConfig(mode="sharded", pipeline="pipelined"))
     mean, var = server.submit(queries)           # one batch, blocking
@@ -14,8 +14,14 @@ package's ``repro.api.Server`` does: ``blend.predict_blended`` for the
 replicated lane; ``serve_sharded.make_halo_blend`` +
 ``make_request_stages`` + the serial/pipelined loops for the halo lane,
 with the router (``StreamingQMax`` / ``TwoLevelQMax`` / fixed q_max) and
-the kernel lane chosen by the config. On one GPU the "sharded" program
-runs every cell locally: one slots-kernel launch per request.
+the kernel lane chosen by the config. Without a process group the
+"sharded" program runs every cell locally: one slots-kernel launch per
+request. With ``group=`` (a ``torch.distributed`` group of gx * gy ranks)
+it is the MESH lane, one cell per rank, as the JAX package's mesh is one
+partition per device: every rank builds a ``Server`` with the same model
+and config, submits the same batches in the same order, and gets the
+whole answer (``serve_sharded.make_mesh_request_stages``). The lane is
+chosen by that argument alone.
 
 Hot swap (the in-situ lifecycle): each model the server has gone live
 with is an immutable ``_ServingContext`` — the fitted model, its cache
@@ -31,7 +37,7 @@ the model that was active when it was routed. The streaming q_max policy
 is shared across contexts (q_max is traffic state, not model state).
 A swapped-in model must keep the grid side in sharded mode, as in the
 JAX package (whose mesh is one partition per device); its grid edges may
-move with the data.
+move with the data. On the mesh lane every rank swaps, in the same order.
 """
 from __future__ import annotations
 
@@ -82,13 +88,22 @@ class Server:
       backend: the RESOLVED kernel lane ("ref" | "pallas" | "fused").
       policy: the streaming q_max policy (None in replicated mode and in
         the fixed-q_max lane), shared across swapped model versions.
+      mesh: the mesh lane's ``serve_sharded.HaloMesh`` (None without a
+        group).
       cache_bytes: sharded mode only — the active context's (total,
-        per-device) cache memory.
+        per-device) cache memory; per rank on the mesh lane, total / P.
     """
 
-    def __init__(self, fitted: FittedPSVGP, config: ServeConfig | None = None, device=None):
+    def __init__(self, fitted: FittedPSVGP, config: ServeConfig | None = None, device=None,
+                 group=None):
         self.config = ServeConfig() if config is None else config
+        if group is not None and self.config.mode != "sharded":
+            raise ValueError(
+                "group= builds the mesh lane of mode='sharded'; replicated "
+                "serving holds every cell in one process"
+            )
         fitted = fitted if device is None else fitted.to(device)
+        self._mesh = None if group is None else ss.mesh_for_grid(fitted.grid, group)
         self.device = fitted.device
         self.backend = self.config.resolve_backend(self.device)
         self.policy = self.config.make_policy() if self.config.mode == "sharded" else None
@@ -118,6 +133,12 @@ class Server:
         return self._active.fitted
 
     @property
+    def mesh(self) -> ss.HaloMesh | None:
+        """The mesh lane's ranks (None on the one-process program and in
+        replicated mode)."""
+        return self._mesh
+
+    @property
     def cache_bytes(self) -> tuple[int, int] | None:
         return self._active.cache_bytes
 
@@ -127,7 +148,9 @@ class Server:
         the stage triple. Nothing here touches ``_active``."""
         t0 = time.perf_counter()
         ctx = _ServingContext(fitted, version)
-        if self.config.mode == "sharded":
+        if self._mesh is not None:
+            self._build_mesh_stages(ctx)
+        elif self.config.mode == "sharded":
             self._build_sharded_stages(ctx)
         else:
             self._build_replicated_stages(ctx)
@@ -146,18 +169,10 @@ class Server:
                 self._stats["waste_rows"] += table.waste_rows()
                 self._stats["spilled"] += table.num_spilled()
 
-    def _build_sharded_stages(self, ctx: _ServingContext) -> None:
-        fitted, grid = ctx.fitted, ctx.fitted.grid
-        cache = fitted.cache
-        ctx.cache_bytes = ss.cache_memory_bytes(cache)
-        blend_fn = ss.make_halo_blend(grid, fitted.cov_fn, self.backend, self.device)
-        route0, submit, collect = ss.make_request_stages(
-            grid, blend_fn, cache,
-            device=self.device,
-            policy=self.policy,
-            q_max=self.config.q_max,
-            pad_multiple=self.config.pad_multiple,
-        )
+    def _wire_halo_stages(self, ctx: _ServingContext, stages) -> None:
+        """Bind a halo lane's (route, submit, collect) to ``ctx``, counting
+        every routed request."""
+        route0, submit, collect = stages
 
         def route(q):
             table, blocks = route0(q)
@@ -165,6 +180,33 @@ class Server:
             return table, blocks
 
         ctx.route, ctx.submit, ctx.collect = route, submit, collect
+
+    def _build_sharded_stages(self, ctx: _ServingContext) -> None:
+        fitted, grid = ctx.fitted, ctx.fitted.grid
+        cache = fitted.cache
+        ctx.cache_bytes = ss.cache_memory_bytes(cache)
+        blend_fn = ss.make_halo_blend(grid, fitted.cov_fn, self.backend, self.device)
+        self._wire_halo_stages(ctx, ss.make_request_stages(
+            grid, blend_fn, cache,
+            device=self.device,
+            policy=self.policy,
+            q_max=self.config.q_max,
+            pad_multiple=self.config.pad_multiple,
+        ))
+
+    def _build_mesh_stages(self, ctx: _ServingContext) -> None:
+        fitted, grid, mesh = ctx.fitted, ctx.fitted.grid, self._mesh
+        local = ss.shard_cache(fitted.cache, mesh)
+        ctx.cache_bytes = ss.cache_memory_bytes(fitted.cache, local)
+        program = ss.make_sharded_blend(mesh, mesh.axis_names, grid, fitted.cov_fn,
+                                        backend=self.backend)
+        self._wire_halo_stages(ctx, ss.make_mesh_request_stages(
+            grid, program, local, mesh,
+            device=self.device,
+            policy=self.policy,
+            q_max=self.config.q_max,
+            pad_multiple=self.config.pad_multiple,
+        ))
 
     def _build_replicated_stages(self, ctx: _ServingContext) -> None:
         fitted = ctx.fitted
@@ -349,13 +391,18 @@ class Server:
         """Cumulative serving counters: requests routed, padded-row waste
         and spilled queries, plus the q_max policy record. They span model
         versions (``lifecycle()`` has the per-version split);
-        :meth:`reset_stats` zeroes them."""
+        :meth:`reset_stats` zeroes them. The mesh lane adds its exchange
+        counters (``HaloMesh.stats``)."""
         with self._stats_lock:
             rec = dict(self._stats)
         if self.policy is not None:
             rec["qmax_policy"] = self.policy.stats()
+        if self._mesh is not None:
+            rec["mesh"] = self._mesh.stats()
         return rec
 
     def reset_stats(self) -> None:
         with self._stats_lock:
             self._stats.update(requests=0, waste_rows=0, spilled=0)
+        if self._mesh is not None:
+            self._mesh.reset_stats()
