@@ -18,7 +18,8 @@ Phases, each printed as it runs; any failure exits non-zero:
               128, d up to 4) and one cell's 65,536 rows, plus row
               independence. Training: the ELBO projection and K(X, Z) at
               the training step's shape (400 cells x 32 rows, m 5, on the
-              artifact's factors), at every m in {1, 10, 17, 64} x B in
+              artifact's factors), at the SPMD rank's (1 x 32, cell 0's
+              factors), at every m in {1, 10, 17, 64} x B in
               {1, 33, 200} (P = 1, d up to 4) and at B = 65,536 with m = 64;
               then the gradient of the autograd Function against
               plain-version autograd. Wide: every entry at m in {65, 128,
@@ -51,7 +52,8 @@ Phases, each printed as it runs; any failure exits non-zero:
   6. times    the launch floor (a one-element add_ through the same CUDA
               graph); every kernel, its plain version, its bound and share
               at its path's shape and at a 65,536-row batch (the slots
-              kernel also at one cell's 65,536 rows), and at the wide
+              kernel also at one cell's 65,536 rows; the projection also
+              at the SPMD rank's 1 x 32), and at the wide
               shapes beside torch.bmm of the same m x m products; p50/p95
               latency and points/s of a stream of 4,096-point requests (the
               "pallas" lane's p50 too), the host stages of a request; ms per
@@ -87,6 +89,21 @@ Phases, each printed as it runs; any failure exits non-zero:
               one-process halo program, one slots launch a rank a request
               (wrapper and torch.profiler), cache bytes a rank total / 16;
               p50 per request and the exchange's share of it.
+ 10. spmd     SPMD training (psvgp_spmd.make_spmd_step): 16 spawned ranks
+              over gloo on the one card, one cell each of a 4 x 4 grid on
+              e3sm_like_field(1,944) (a cell's ~121 points, as in the
+              paper's 20 x 20 run), the paper's width (m 5, B 32, delta
+              0.125, lr 0.05), 300 steps: one projection launch a rank a
+              step (wrapper; torch.profiler on rank 0), one hop a step
+              where d != 0, the first 5 steps' received batches bitwise
+              the one-process step's, the gathered state against the
+              one-process eager psvgp.fit(comm="ppermute") from the same
+              init (bitwise, or — where a library op rounds a cell
+              differently alone, which a batch-invariance probe names —
+              within 2e-4 after 2 steps and RMSPE / boundary RMSD within
+              10%); step p50/p95 per rank, the exchange's and the loss
+              all-reduce's shares, rank 0's device busy share, the
+              one-process step's p50.
 
 Tolerances (``repro_torch.kernels.ref.tolerance_ratio``): float32 rounding
 scaled by the magnitude of the terms each output sums — prediction: per
@@ -326,6 +343,8 @@ def check_training_kernels(torch, dev, fitted, x_main, errors: dict) -> None:
     main_args = (x_main, cache.z, cache.cov.log_lengthscale, cache.cov.log_variance, cache.w)
     errors["svgp_projection"], errors["rbf_cross_cov"] = compare(
         "training step P=400 B=32 m=5 d=2 (artifact)", main_args)
+    compare("SPMD rank's step P=1 B=32 m=5 d=2 (artifact cell 0)",
+            tuple(a[:1] for a in main_args))
     for i, (m, B) in enumerate((m, B) for m in (1, 10, 17, 64) for B in (1, 33, 200)):
         d = 1 + i % 4
         compare(f"P=1 B={B} m={m} d={d}", random_case(B, m, d))
@@ -1130,6 +1149,8 @@ def training_times(torch, dev, card: str, cache, x_main, fitted, ds, report: dic
     rows = []
     for label, x, factors in (
         ("main", x_main, (cache.z, cache.cov.log_lengthscale, cache.cov.log_variance, cache.w)),
+        ("SPMD rank", x_main[:1], (cache.z[:1], cache.cov.log_lengthscale[:1],
+                                   cache.cov.log_variance[:1], cache.w[:1])),
         ("65,536 rows", big, (cache.z[:1], cache.cov.log_lengthscale[:1],
                               cache.cov.log_variance[:1], cache.w[:1])),
     ):
@@ -1624,6 +1645,358 @@ def mesh_phase(torch, dev, card: str, report: dict, rank_fn=None) -> None:
     report["mesh"] = rec
 
 
+# --------------------------------------------------------------------------
+# 10. SPMD training: one cell per rank, 16 ranks over gloo on one card
+# --------------------------------------------------------------------------
+
+SPMD_SIDE = 4
+SPMD_N = 1944  # 48,602 x 16 / 400: a cell holds what a cell of the paper's 20 x 20 run holds
+SPMD_STEPS = 300
+SPMD_CHECKED = 5  # steps whose received batches are held to the one-process step's
+SPMD_PROFILED = 5
+SPMD_JOIN_S = 300
+
+
+def spmd_problem(dev):
+    """(grid, data, static, initial state) of phase 10: the paper's width
+    (m 5, B 32, delta 0.125, lr 0.05, the ppermute exchange) on 4 x 4
+    cells of ``e3sm_like_field(1,944)``."""
+    from repro_torch.core import partition, psvgp, svgp
+    from repro_torch.data.spatial import e3sm_like_field
+
+    ds = e3sm_like_field(n=SPMD_N, seed=0)
+    grid = partition.make_grid(ds.x, SPMD_SIDE, SPMD_SIDE)
+    data = partition.partition_data(ds.x, ds.y, grid, device=dev)
+    cfg = psvgp.PSVGPConfig(
+        svgp=svgp.SVGPConfig(num_inducing=5, input_dim=2, use_pallas=True),
+        delta=0.125, batch_size=32, learning_rate=0.05, comm="ppermute", seed=0,
+    )
+    static = psvgp.build(cfg, data)
+    return grid, data, static, psvgp.init(0, cfg, data)
+
+
+def _flat_state(state) -> dict:
+    from repro_torch.checkpoint.checkpoint import flatten
+
+    out = flatten({"params": state.params, "opt": {"mu": state.opt.mu, "nu": state.opt.nu}})
+    out["opt/step"] = np.asarray(int(state.opt.step))
+    out["step"] = np.asarray(int(state.step))
+    return out
+
+
+def spmd_rank(rank: int, world: int, store: str, inputs: str, out_dir: str, device: str) -> None:
+    """One rank of phase 10 (a spawned process): the initial state's cell,
+    SPMD_STEPS steps of ``psvgp_spmd.make_spmd_step`` (the first
+    SPMD_CHECKED through its two halves, their received batches kept),
+    each timed on the host clock; the gathered state after 2 steps and
+    at the end; then SPMD_PROFILED more steps, rank 0 under
+    torch.profiler."""
+    import contextlib
+    import pickle
+    import traceback
+
+    import torch
+
+    torch.set_num_threads(1)
+    marks = {"imported": time.time()}  # wall clock: the parent reads them against its spawn
+    try:
+        import torch.distributed as dist
+
+        from repro_torch.core import psvgp
+        from repro_torch.core import psvgp_spmd as spmd
+        from repro_torch.device import resolve_device
+        from repro_torch.kernels import svgp_proj
+        from repro_torch.launch import serve_sharded as ss
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = resolve_device(device)
+        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                                world_size=world)
+        marks["joined"] = time.time()
+        try:
+            z = dict(np.load(inputs))
+            grid, data, static, _ = spmd_problem(dev)
+            mesh = ss.mesh_for_grid(grid, dist.group.WORLD)
+            step = spmd.make_spmd_step(mesh, mesh.axis_names, grid, static.cfg, static.cov_fn,
+                                       static.p_dir)
+            arrays = spmd.shard_data((data.x, data.y, data.mask, static.dist.probs,
+                                      static.dist.n_eff), mesh)
+            state = psvgp.state_from_numpy(z, dev)
+            state = spmd.shard_state(state, mesh)
+            marks["ready"] = time.time()
+            out: dict = {"batches": [], "step_ms": [], "marks": marks}
+            svgp_proj.reset_launches()
+            mesh.reset_stats()
+            for t in range(SPMD_STEPS):
+                t0 = time.perf_counter()
+                if t < SPMD_CHECKED:
+                    d, bx, by, bm = step.batch(state, 0, *arrays[:3])
+                    state, _loss = step.update(state, d, bx, by, bm, *arrays[3:])
+                    out["batches"].append((int(d), *(a.cpu().numpy() for a in (bx, by, bm))))
+                else:
+                    state, _loss = step(state, 0, *arrays)
+                out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+                if t == 0:
+                    marks["first_step"] = time.time()
+                if t == 1:
+                    two = spmd.gather_state(state, mesh)
+                    if rank == 0:
+                        out["state_2"] = _flat_state(two)
+            out["wall_s"] = sum(out["step_ms"]) / 1e3
+            marks["trained"] = time.time()
+            out["launches"] = dict(svgp_proj.LAUNCHES)
+            out["mesh"] = mesh.stats()
+            out["reduce_s"] = step.reduce_s
+            final = spmd.gather_state(state, mesh)
+            if rank == 0:
+                out["state_end"] = _flat_state(final)
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with (torch.profiler.profile(activities=acts) if rank == 0
+                  else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                for _ in range(SPMD_PROFILED):
+                    state, _loss = step(state, 0, *arrays)
+                window_us = 1e6 * (time.perf_counter() - t0)
+            if prof is not None:
+                on_card = [e for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA]
+                busy_us, per_name = device_busy(torch, prof, SPMD_PROFILED)
+                out["profiler"] = {
+                    "device_events": len(on_card), "busy_us": busy_us, "window_us": window_us,
+                    "projection_kernels": sum("projection" in e.name for e in on_card),
+                    "per_name": per_name,
+                }
+            marks["done"] = time.time()
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # noqa: BLE001 — the parent reads and raises it
+        out = {"error": traceback.format_exc()}
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def batch_invariance(torch, static, state, data) -> dict:
+    """{op: True when every cell's result at P = 1 is bitwise its row of
+    the P-stacked call}: each library op of a training step, the
+    projection kernel and the whole update (``psvgp._sgd_step``), on the
+    state and the first 32 stored rows of every cell."""
+    from repro_torch.core import posterior, psvgp
+    from repro_torch.kernels import ops
+    from repro_torch.optim import tree_map
+
+    p_ = state.params
+    jitter = static.cfg.svgp.jitter
+    m = p_.z.shape[1]
+    eye = torch.eye(m, device=p_.z.device)
+    kmm = static.cov_fn(p_.cov, p_.z, p_.z) + jitter * eye
+    lmm = torch.linalg.cholesky_ex(kmm)[0]
+    x, y, mask = (a[:, :32].contiguous() for a in (data.x, data.y, data.mask))
+    knm = static.cov_fn(p_.cov, x, p_.z)
+    sl = posterior.s_chol(p_.s_tril)
+
+    def sub(tree, rows):
+        return tree_map(lambda a: a[rows], tree)
+
+    def step(rows):
+        st = psvgp.PSVGPState(sub(p_, rows), state.opt._replace(
+            mu=sub(state.opt.mu, rows), nu=sub(state.opt.nu, rows)), state.step)
+        new, _ = psvgp._sgd_step(st, x[rows], y[rows], mask[rows], static.dist.n_eff[rows],
+                                 static.cfg, static.cov_fn)
+        return new.params.m_star, new.params.s_tril, new.params.z
+
+    probes = {
+        "K(X, Z) (cov_fn)": lambda r: (static.cov_fn(sub(p_.cov, r), x[r], p_.z[r]),),
+        "cholesky_ex": lambda r: (torch.linalg.cholesky_ex(kmm[r])[0],),
+        "solve_triangular, W = Lmm^-1": lambda r: (ops.lower_inverse(lmm[r]),),
+        "solve_triangular, Lmm^-T lk": lambda r: (
+            torch.linalg.solve_triangular(lmm[r].mT, knm[r].mT, upper=True),),
+        "matmul, a^T m": lambda r: (knm[r] @ p_.m_star[r][..., None],),
+        "matmul, S_L^T a": lambda r: (sl[r].mT @ knm[r].mT,),
+        "projection kernel": lambda r: ops.svgp_projection(x[r], p_.z[r], p_.cov.log_lengthscale[r],
+                                                           p_.cov.log_variance[r], lmm[r]),
+        "the whole update (psvgp._sgd_step)": step,
+    }
+    P = x.shape[0]
+    out = {}
+    for name, fn in probes.items():
+        whole = fn(slice(None))
+        out[name] = all(torch.equal(w[p:p + 1], a)
+                        for p in range(P) for w, a in zip(whole, fn(slice(p, p + 1)), strict=True))
+    return out
+
+
+def spmd_phase(torch, dev, card: str, report: dict, rank_fn=None) -> None:
+    """Phase 10: SPMD training on 16 spawned ranks over gloo, all on
+    ``dev``, one cell each (the paper's width, 300 steps): one projection
+    launch a rank a step (wrapper; torch.profiler on rank 0), one hop a
+    step where d != 0, the received batches bitwise the one-process
+    step's, the gathered state against the one-process eager
+    ``psvgp.fit(comm="ppermute")`` from the same init and seed — bitwise,
+    or, where a library op rounds a cell differently alone, within 2e-4
+    after 2 steps with RMSPE and boundary RMSD within 10%."""
+    import multiprocessing as mp
+    import pickle
+
+    from repro_torch.core import metrics, neighbors, psvgp, sampler
+    from repro_torch.kernels import svgp_proj
+
+    world = SPMD_SIDE * SPMD_SIDE
+    grid, data, static, state0 = spmd_problem(dev)
+    svgp_proj.reset_launches()
+    one = psvgp.fit(static, state0, data, SPMD_STEPS)
+    one_launches = svgp_proj.LAUNCHES["svgp_projection"]
+    two = psvgp.fit(static, state0, data, 2)
+    state, step_ms = psvgp.device_counters(state0, dev), []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        state, _loss = psvgp.train_step(static, state, data)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    log_p = torch.log(torch.clamp_min(static.p_dir, 1e-30))
+    dirs = [int(sampler.categorical(log_p, sampler.StepDraws(0, t, dev)))
+            for t in range(SPMD_STEPS)]
+    want_batches = [
+        [a.cpu().numpy() for a in psvgp.ppermute_batch(0, t, data.x, data.y, data.mask,
+                                                        static.perms, static.p_dir, 32)]
+        for t in range(SPMD_CHECKED)]
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.npz")
+        np.savez(inputs, **_flat_state(state0))
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=rank_fn or spmd_rank,
+                             args=(r, world, os.path.join(tmp, "store"), inputs, tmp, str(dev)))
+                 for r in range(world)]
+        t0, spawned = time.perf_counter(), time.time()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(SPMD_JOIN_S)
+            alive = [r for r, p in enumerate(procs) if p.is_alive()]
+            check(not alive, f"spmd: ranks {alive} still running after {SPMD_JOIN_S} s")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            path = os.path.join(tmp, f"rank{r}.pkl")
+            check(os.path.exists(path), f"spmd: rank {r} wrote nothing (exit {procs[r].exitcode})")
+            with open(path, "rb") as f:
+                ranks.append(pickle.load(f))
+            check("error" not in ranks[r], f"spmd: rank {r} failed:\n{ranks[r].get('error')}")
+    check(all(p.exitcode == 0 for p in procs), f"spmd: exit codes {[p.exitcode for p in procs]}")
+
+    # counts: one projection launch a rank a step, one hop a step where d != 0
+    hops = sum(d != 0 for d in dirs)
+    for r, rk in enumerate(ranks):
+        check(rk["launches"]["svgp_projection"] == SPMD_STEPS,
+              f"spmd: rank {r} launched the projection kernel {rk['launches']} times in "
+              f"{SPMD_STEPS} steps")
+        check(rk["mesh"]["shifts"] == hops,
+              f"spmd: rank {r} made {rk['mesh']['shifts']} hops, {hops} steps moved a batch")
+    check(one_launches == SPMD_STEPS, f"spmd: the one-process fit launched {one_launches} times")
+    # the received batches, bitwise
+    perms = static.perms.cpu().numpy()
+    for t, (d, bx, by, bm) in enumerate(want_batches):
+        d = int(d[0])
+        check(all(rk["batches"][t][0] == d for rk in ranks), f"spmd: step {t}: the ranks' d differ")
+        for p, rk in enumerate(ranks):
+            _, gx, gy, gm = rk["batches"][t]
+            if d != 0 and perms[d][p] == p:
+                check(not (gx.any() or gy.any() or gm.any()),
+                      f"spmd: step {t}: rank {p} has no neighbor in direction {d}, got non-zeros")
+            else:
+                check(_equal((gx[0], gy[0]), (bx[p], by[p])) and np.array_equal(gm[0], bm[p]),
+                      f"spmd: step {t}: rank {p}'s batch differs from the one-process step's")
+    print(f"[spmd] [{card}] {world} ranks, {SPMD_STEPS} steps: 1 projection launch a rank a step, "
+          f"{hops} hops ({SPMD_STEPS - hops} steps drew d = 0); the received batches of the "
+          f"first {SPMD_CHECKED} steps bitwise the one-process step's (zeros at the grid's edge)")
+
+    # the state against the one-process fit
+    def diff(flat, state):
+        want = _flat_state(state)
+        return {k: float(np.abs(flat[k].astype(np.float64) - want[k]).max()) for k in want}
+
+    end = diff(ranks[0]["state_end"], one)
+    at2 = diff(ranks[0]["state_2"], two)
+    bitwise = all(v == 0.0 for v in end.values())
+    gathered = psvgp.state_from_numpy(ranks[0]["state_end"], dev)
+    probes = neighbors.boundary_probes(grid, 23)
+    quality = {}
+    for label, st in (("spmd", gathered), ("one-process", one)):
+        quality[label] = (float(metrics.rmspe(static, st, data)),
+                          float(metrics.boundary_rmsd(static, st, probes)))
+    invariant = batch_invariance(torch, static, one, data)
+    params_2 = max(v for k, v in at2.items() if k.startswith("params/"))
+    params_end = max(v for k, v in end.items() if k.startswith("params/"))
+    rel = [abs(a - b) / b for a, b in zip(quality["spmd"], quality["one-process"], strict=True)]
+    print(f"[spmd] [{card}] batch invariance on {dev.type} (P = 1 against the P-stacked call, "
+          "bitwise per cell): " + ", ".join(f"{k} {'yes' if v else 'NO'}"
+                                            for k, v in invariant.items()))
+    print(f"[spmd] [{card}] final state bitwise the one-process fit's: {bitwise} (max |d| "
+          f"params {params_end:.3e}, all leaves {max(end.values()):.3e}); after 2 steps max "
+          f"|d| params {params_2:.3e}, all leaves "
+          f"{max(at2.values()):.3e}; RMSPE {quality['spmd'][0]:.5f} vs "
+          f"{quality['one-process'][0]:.5f}, "
+          f"boundary RMSD {quality['spmd'][1]:.5f} vs {quality['one-process'][1]:.5f}")
+    check(all(np.isfinite(q) for qs in quality.values() for q in qs), "spmd: non-finite metrics")
+    if not bitwise:
+        check(not all(invariant.values()),
+              "spmd: the state differs from the one-process fit's though every op is "
+              "batch-invariant")
+        check(params_2 <= 2e-4, f"spmd: after 2 steps the params differ by {params_2:.3e} > 2e-4")
+        check(max(rel) <= 0.10, f"spmd: RMSPE / boundary RMSD {quality} differ by more than 10%")
+
+    # times: per rank on the host clock, the exchange's and the all-reduce's shares
+    p50 = [float(np.percentile(rk["step_ms"], 50)) for rk in ranks]
+    p95 = [float(np.percentile(rk["step_ms"], 95)) for rk in ranks]
+    ex = [rk["mesh"]["exchange_s"] / rk["wall_s"] for rk in ranks]
+    red = [rk["reduce_s"] / rk["wall_s"] for rk in ranks]
+    rec = {"ranks": world, "steps": SPMD_STEPS, "hops": hops, "bitwise": bitwise,
+           "max_abs_diff_end": max(end.values()), "max_abs_diff_params_end": params_end,
+           "max_abs_diff_params_2": params_2,
+           "batch_invariant": invariant, "quality": quality, "spawn_and_train_s": spawn_s,
+           "step_p50_ms_ranks": [min(p50), max(p50)], "step_p95_ms_ranks": [min(p95), max(p95)],
+           "step_p50_ms_rank0": p50[0], "step_p95_ms_rank0": p95[0],
+           "exchange_share_ranks": [min(ex), max(ex)],
+           "allreduce_share_ranks": [min(red), max(red)],
+           "one_process_step_p50_ms": float(np.percentile(step_ms, 50))}
+    print(f"[spmd] [{card}] step p50 {p50[0]:.4f} ms, p95 {p95[0]:.4f} ms on rank 0 (ranks' p50 "
+          f"{min(p50):.4f}-{max(p50):.4f}, p95 {min(p95):.4f}-{max(p95):.4f}) on the host clock; "
+          f"the exchange {min(ex):.4f}-{max(ex):.4f} and the loss all-reduce {min(red):.4f}-"
+          f"{max(red):.4f} of a rank's wall time (each includes the wait for the slowest); the "
+          f"one-process step p50 {rec['one_process_step_p50_ms']:.4f} ms; spawn + train "
+          f"{spawn_s:.3f} s")
+    # where the spawn's seconds go: the last rank to reach each mark
+    marks = {k: max(rk["marks"][k] for rk in ranks) - spawned for k in ranks[0]["marks"]}
+    rec["rank_marks_s"] = marks
+    print(f"[spmd] [{card}] seconds from the spawn until the last rank has: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in marks.items())
+          + f"; all joined the parent at {spawn_s:.3f}")
+    seen = ranks[0].get("profiler", {})
+    if seen.get("device_events", 0) > 0:
+        check(seen["projection_kernels"] == SPMD_PROFILED,
+              f"spmd: the profiler saw {seen['projection_kernels']} projection kernels in "
+              f"{SPMD_PROFILED} steps on rank 0")
+        rec["device_busy_share_rank0"] = seen["busy_us"] / seen["window_us"]
+        rec["profiler_projection_per_step"] = 1
+        print(f"[spmd] [{card}] torch.profiler on rank 0: {SPMD_PROFILED} projection kernels in "
+              f"{SPMD_PROFILED} steps; device busy {seen['busy_us'] / SPMD_PROFILED:.1f} us of "
+              f"{seen['window_us'] / SPMD_PROFILED:.1f} us per step (share "
+              f"{rec['device_busy_share_rank0']:.4f}); top device ops, us per step: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in seen["per_name"].items()))
+    else:
+        rec["device_busy_share_rank0"] = None
+        rec["profiler_projection_per_step"] = None
+        print(f"[spmd] [{card}] torch.profiler saw no device activity on rank 0: the busy share "
+              "and the launches by profiler not measured (the wrapper's counts stand)")
+    report["spmd"] = rec
+
+
 def run(report: dict) -> None:
     import torch
 
@@ -1941,9 +2314,10 @@ def run(report: dict) -> None:
     # that they are taken in the process state of the earlier slices) -----
     lifecycle_slice(torch, dev, card, report, trained, ds)
 
-    # -- 8. the entry points and examples; 9. the halo mesh -----------------
+    # -- 8. the entry points and examples; 9. the halo mesh; 10. SPMD training
     entry_points_phase(card, report)
     mesh_phase(torch, dev, card, report)
+    spmd_phase(torch, dev, card, report)
     report["times"] = [
         {"name": n, "shape": list(s), "label": lab, "ms": k, "plain_ms": p,
          "bound_ms": b, "bound_by": by, "floor_ms": report["floor_ms"]}

@@ -137,13 +137,15 @@ def blend_error_scales(
     ids, w = corner_ids_weights(grid, pts)
     dev = cache.z.device
     xq = torch.as_tensor(pts, device=dev)[:, None, :]
-    w_t = torch.as_tensor(w, device=dev).double()
+    # float64 by design: a tolerance scale must not round like the values it
+    # bounds (hence the RR003 noqa marks)
+    w_t = torch.as_tensor(w, device=dev).double()  # repro: noqa-RR003
     ids_t = torch.as_tensor(ids, device=dev)
     corners = []
     for c in range(4):
         cc = posterior.take_cache(cache, ids_t[:, c])
         args = (xq, cc.z, cc.cov.log_lengthscale, cc.cov.log_variance, cc.w, cc.u, cc.c)
-        m_c, v_c = ref.posterior_predict(*(a.double() for a in args))
+        m_c, v_c = ref.posterior_predict(*(a.double() for a in args))  # repro: noqa-RR003
         ms_c, fs_c = ref.posterior_predict_scales(*args)
         corners.append((m_c[:, 0], torch.abs(v_c[:, 0]), ms_c[:, 0], fs_c[:, 0]))
     mean = sum(w_t[:, c] * corners[c][0] for c in range(4))

@@ -185,12 +185,13 @@ def predict_cached(
     else:
         # each row summed in one fixed order in float64 and rounded once
         # (``ref.row_products``): a row's answer does not depend on the
-        # batch around it
+        # batch around it (float64 by design: the CPU lane's bitwise
+        # contract, hence the RR003 noqa below)
         knm = cov_fn(cache.cov, xstar, cache.z)  # (..., Q, m)
         fmean = kref.row_products(knm, cache.c[..., None, :])[..., 0].to(knm.dtype)
         qd = kref.row_sumsq(kref.row_products(knm, cache.w))
         sd = kref.row_sumsq(kref.row_products(knm, cache.u))
-        fvar = (kdiag(cache.cov, xstar).double() - qd + sd).to(knm.dtype)
+        fvar = (kdiag(cache.cov, xstar).double() - qd + sd).to(knm.dtype)  # repro: noqa-RR003
     return fmean, _finish(cache.log_beta, fvar, include_noise)
 
 

@@ -177,19 +177,45 @@ def train_step_ppermute(
     in direction d; the KL keeps weight 1).
 
     ``draws`` = (d (), idx (P, B)) replaces the step's own draws."""
+    d, bx, by, bm = ppermute_batch(seed, state.step, x, y, mask, perms, p_dir, cfg.batch_size,
+                                   draws=draws)
+    w = importance_weight(dist.probs, p_dir, d)
+    new, losses = _sgd_step(state, bx, by, bm, dist.n_eff, cfg, cov_fn, ll_weight=w)
+    return new, torch.mean(losses)
+
+
+def importance_weight(probs: torch.Tensor, p_dir: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """pi_j(d) / p(d) of every row of ``probs`` (P, 5) for the direction d
+    (1,): 0 where cell j has no neighbor in direction d."""
+    pi_jd = torch.index_select(probs, 1, d)[:, 0]
+    return pi_jd / torch.clamp_min(torch.index_select(p_dir, 0, d), 1e-30)
+
+
+def ppermute_batch(
+    seed: int,
+    step,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    mask: torch.Tensor,
+    perms: torch.Tensor,
+    p_dir: torch.Tensor,
+    batch: int,
+    *,
+    draws: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """The draws and the received mini-batches of :func:`train_step_ppermute`
+    at counter ``step``: (d (1,), bx (P, B, dim), by (P, B), bm (P, B)),
+    receiver j holding the batch of perms[d][j] (its own where it has no
+    neighbor in direction d)."""
     if draws is None:
-        rand = StepDraws(seed, state.step, x.device)
+        rand = StepDraws(seed, step, x.device)
         d = categorical(torch.log(torch.clamp_min(p_dir, 1e-30)), rand)
-        idx, _ = sample_minibatch_indices(rand, mask, cfg.batch_size)
+        idx, _ = sample_minibatch_indices(rand, mask, batch)
     else:
         d, idx = draws
     d = d.reshape(1)
     perm_row = torch.index_select(perms, 0, d)[0]  # (P,) source of each receiver
-    bx, by, bm = gather_minibatch(x, y, mask, perm_row, idx[perm_row])
-    pi_jd = torch.index_select(dist.probs, 1, d)[:, 0]
-    w = pi_jd / torch.clamp_min(torch.index_select(p_dir, 0, d), 1e-30)
-    new, losses = _sgd_step(state, bx, by, bm, dist.n_eff, cfg, cov_fn, ll_weight=w)
-    return new, torch.mean(losses)
+    return (d, *gather_minibatch(x, y, mask, perm_row, idx[perm_row]))
 
 
 def train_step(static: PSVGPStatic, state: PSVGPState, data: PartitionedData,

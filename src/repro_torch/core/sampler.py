@@ -82,15 +82,19 @@ class StepDraws:
         self.start = mix64(step * _GOLDEN + stream_seed(seed, "step"))
         self.calls = 0
 
-    def uniform(self, shape: tuple) -> torch.Tensor:
+    def uniform(self, shape: tuple, offset: int = 0) -> torch.Tensor:
         """float32 uniforms in [0, 1) of ``shape``: the top 24 bits of each
-        output times 2^-24, exact in float32."""
+        output times 2^-24, exact in float32. ``offset`` skips that many
+        elements of the draw: ``uniform((1, n), offset=p * n)`` is row p of
+        ``uniform((P, n))`` bit for bit (what one rank of the SPMD step
+        draws, ``psvgp_spmd``)."""
         n = 1
         for s in shape:
             n *= s
         start = self.start + _int64(self.calls * _DRAW)
         self.calls += 1
-        ctr = torch.arange(1, n + 1, dtype=torch.int64, device=self.device) * _GOLDEN
+        ctr = torch.arange(offset + 1, offset + n + 1, dtype=torch.int64,
+                           device=self.device) * _GOLDEN
         bits = _shr(mix64(ctr + start), 40)
         return (bits.to(torch.float32) * (1.0 / (1 << 24))).reshape(shape)
 
@@ -131,24 +135,29 @@ def sample_slots(draws: StepDraws, dist: SlotDistribution) -> tuple[torch.Tensor
 
 
 def sample_row_indices(
-    draws: StepDraws, mask_row: torch.Tensor, batch: int
+    draws: StepDraws, mask_row: torch.Tensor, batch: int, row: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Single-row version: (n_max,) mask -> (B,) indices + validity."""
-    idx, valid = sample_minibatch_indices(draws, mask_row[None], batch)
+    """Single-row version: (n_max,) mask -> (B,) indices + validity, drawn
+    as row ``row`` of :func:`sample_minibatch_indices` over (P, n_max) is:
+    the SPMD step's rank p calls it with row p and gets bitwise the one-
+    process step's row p (as the JAX package's ``sample_row_indices`` with
+    the per-partition folded key)."""
+    idx, valid = sample_minibatch_indices(draws, mask_row[None], batch, first_row=row)
     return idx[0], valid[0]
 
 
 def sample_minibatch_indices(
-    draws: StepDraws, mask_rows: torch.Tensor, batch: int
+    draws: StepDraws, mask_rows: torch.Tensor, batch: int, first_row: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Uniform WITHOUT-replacement indices from masked rows.
 
-    mask_rows: (P, n_max) validity of each stored point in the SOURCE row.
-    Returns (idx, bmask): (P, B) int64 indices into n_max and their
+    mask_rows: (R, n_max) validity of each stored point in the SOURCE row,
+    rows ``first_row`` .. ``first_row + R - 1`` of the step's (P, n_max)
+    draw. Returns (idx, bmask): (R, B) int64 indices into n_max and their
     validity — a source with fewer than B points fills the surplus with
     padded rows (bmask 0), i.e. the batch degrades to "all n_k points".
     """
-    scores = draws.uniform(tuple(mask_rows.shape))
+    scores = draws.uniform(tuple(mask_rows.shape), offset=first_row * mask_rows.shape[1])
     scores = scores + (mask_rows - 1.0) * 1e9
     idx = torch.topk(scores, batch, dim=1).indices
     return idx, torch.gather(mask_rows, 1, idx)

@@ -37,7 +37,9 @@ table and the same q_max. Per request and rank:
   3. the composed reverse halo of the JAX program (``make_sharded_blend``):
      a slot flip, a row exchange (x-, x+), a column exchange (y-, y+) —
      4 shifts, each one ``batch_isend_irecv`` with the rank's neighbors
-     over gloo, zeros where the neighbor is off-grid;
+     over gloo, zeros where the neighbor is off-grid. The hop is
+     ``psvgp_spmd.make_shift``, the one the SPMD training step makes once
+     a step, so serving and training share one exchange;
   4. the 4-corner blend of the rank's own rows on its device;
   5. an all-gather of every rank's rows (gloo, host memory) and the
      scatter to request order: every rank returns the whole answer.
@@ -68,7 +70,7 @@ import torch
 from repro_torch.core import posterior, routing
 from repro_torch.core.blend import corner_ids_weights
 from repro_torch.core.partition import PartitionGrid
-from repro_torch.core.psvgp_spmd import grid_matches_mesh, shift_perm
+from repro_torch.core.psvgp_spmd import grid_matches_mesh, make_shift
 from repro_torch.kernels import ops as kops
 
 
@@ -219,8 +221,8 @@ class HaloMesh:
     ``shape`` and ``axis_names`` read as a JAX mesh's do
     (``psvgp_spmd.grid_matches_mesh``).
 
-    Counters of the serving exchange (``stats``): ``shifts`` (one
-    ``batch_isend_irecv`` each), the seconds spent in them
+    Counters of the exchange (``stats``), serving and training alike:
+    ``shifts`` (one ``batch_isend_irecv`` each), the seconds spent in them
     (``exchange_s``), in the all-gather of the results (``gather_s``) and
     waiting for the rank's own evaluation to reach host memory
     (``wait_s``). A collective's seconds include the wait for the slowest
@@ -281,46 +283,6 @@ def shard_cache(cache: posterior.PosteriorCache, mesh: HaloMesh) -> posterior.Po
     return posterior.map_cache(lambda a: a[p:p + 1].clone(), cache)
 
 
-def _make_shift(mesh: HaloMesh) -> Callable:
-    """Build ``shift(a, dx, dy)`` over host tensors: every rank receives the
-    payload of the rank at grid offset (dx, dy), zeros where that neighbor
-    is off-grid (``ppermute``'s edge rule). An x-hop and a y-hop are one
-    ``batch_isend_irecv`` each, built from ``psvgp_spmd.shift_perm``'s
-    (src, dst) tables as in the JAX package; a diagonal composes both."""
-    import torch.distributed as dist
-
-    ix, iy = mesh.cell
-
-    def hop(a: torch.Tensor, d: int, along_x: bool) -> torch.Tensor:
-        n, me = (mesh.gx, ix) if along_x else (mesh.gy, iy)
-        out = torch.zeros_like(a)
-        ops = []
-        for src, dst in shift_perm(n, up=d > 0):
-            if dst == me:
-                peer = mesh.peer(src, iy) if along_x else mesh.peer(ix, src)
-                ops.append(dist.P2POp(dist.irecv, out, peer, mesh.group))
-            if src == me:
-                peer = mesh.peer(dst, iy) if along_x else mesh.peer(ix, dst)
-                ops.append(dist.P2POp(dist.isend, a, peer, mesh.group))
-        t0 = time.perf_counter()
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
-        mesh.exchange_s += time.perf_counter() - t0
-        mesh.shifts += 1
-        return out
-
-    def shift(a: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
-        a = a.contiguous()
-        if dx:
-            a = hop(a, dx, along_x=True)
-        if dy:
-            a = hop(a, dy, along_x=False)
-        return a
-
-    return shift
-
-
 def make_halo_gather(mesh: HaloMesh, axes: Sequence[str], grid: PartitionGrid) -> Callable:
     """(1, ...) -> (1, 9, ...) halo gather on host tensors: output slot k on
     rank p is rank p+OFFSETS[k]'s block (zeros off-grid). The standalone
@@ -329,7 +291,7 @@ def make_halo_gather(mesh: HaloMesh, axes: Sequence[str], grid: PartitionGrid) -
     call it."""
     if not grid_matches_mesh(grid, mesh, axes):
         raise ValueError(f"grid {grid.gx}x{grid.gy} must match mesh axes {tuple(axes)}")
-    shift = _make_shift(mesh)
+    shift = make_shift(mesh)
 
     def gather(x: torch.Tensor) -> torch.Tensor:
         x = x[0]
@@ -391,7 +353,7 @@ def make_sharded_blend(
     backend = posterior.resolve_slot_backend(False, backend)
     if backend != "ref":
         kops.require_rbf(cov_fn)
-    shift = _make_shift(mesh)
+    shift = make_shift(mesh)
     S = routing.NUM_HALO_SLOTS
 
     def evaluate(cache, hx):
