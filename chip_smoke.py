@@ -104,6 +104,14 @@ Phases, each printed as it runs; any failure exits non-zero:
               10%); step p50/p95 per rank, the exchange's and the loss
               all-reduce's shares, rank 0's device busy share, the
               one-process step's p50.
+ 11. analysis the analysis package's program passes on the card: python -m
+              repro_torch.analysis --passes hlo,contracts,costs --device
+              cuda (the mesh probes on one spawn of 16 ranks on the card);
+              exit 0 with no finding, 1 kernel launch a request on every
+              "pallas"/"fused" lane, 4 shifts and 1 all-gather a mesh
+              request, per-rank peak CUDA memory at P = 4, 9, 16 within the
+              mesh's device-exponent budget; prints the host copies a
+              request and the f64 ops the ref lanes run on the card.
 
 Tolerances (``repro_torch.kernels.ref.tolerance_ratio``): float32 rounding
 scaled by the magnitude of the terms each output sums — prediction: per
@@ -1997,6 +2005,117 @@ def spmd_phase(torch, dev, card: str, report: dict, rank_fn=None) -> None:
     report["spmd"] = rec
 
 
+# --------------------------------------------------------------------------
+# 11. the analysis package's program passes on the card
+# --------------------------------------------------------------------------
+
+ANALYSIS_PASSES = ("hlo", "contracts", "costs")
+ANALYSIS_TIMEOUT_S = 400
+_F64_OP = re.compile(r"^op (\S+) .*out=[^ ]*float64[^ ]* dev=cuda", re.MULTILINE)
+
+
+def analysis_phase(card: str, report: dict) -> None:
+    """Phase 11: ``python -m repro_torch.analysis --passes hlo,contracts,costs
+    --device cuda`` as a subprocess from the checkout; the mesh probes of
+    hlo and costs share one spawn of 16 gloo ranks on the card. Fails
+    unless it exits 0 with no finding in any of the three passes. Prints,
+    from its report: the kernel launches a request on every pallas/fused
+    lane (the wrappers' counters), the shifts and all-gathers a mesh
+    request (the recorder, beside HaloMesh.stats), the host copies a
+    request, per-rank peak CUDA memory at P = 4, 9 and 16 with its fitted
+    exponent and budget, and the f64 ops the ref lanes ran on the card."""
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE")}
+    env["PYTHONPATH"] = SRC
+    argv = ["-m", "repro_torch.analysis", "--passes", ",".join(ANALYSIS_PASSES),
+            "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "ANALYSIS_TORCH.json")
+        t0 = time.perf_counter()
+        try:
+            r = subprocess.run([sys.executable, *argv, "--out", out], cwd=REPO, env=env,
+                               capture_output=True, text=True, timeout=ANALYSIS_TIMEOUT_S)
+        except subprocess.TimeoutExpired as e:
+            raise SmokeFailure(f"analysis: no exit within {ANALYSIS_TIMEOUT_S} s") from e
+        seconds = time.perf_counter() - t0
+        check(r.returncode == 0, f"analysis exited {r.returncode}:\n{r.stdout[-4000:]}\n"
+              f"{r.stderr[-3000:]}")
+        with open(out) as f:
+            rep = json.load(f)
+    check(rep["findings_per_pass"] == {p: 0 for p in ANALYSIS_PASSES},
+          f"analysis: findings {rep['findings_per_pass']}")
+    spawns = rep["mesh_probes"]
+    check(len(spawns) == 1 and spawns[0]["ranks"] == 16,
+          f"analysis: the mesh probes took {spawns}, not one spawn of 16 ranks")
+    hlo = rep["passes"]["hlo"]
+    check(hlo["device"] == "cuda", f"analysis: hlo ran on {hlo['device']}")
+    lanes = {rec["lane"]: rec for rec in hlo["lanes"]}
+    kernel_lanes = {name: rec["kernel_dispatches"] for name, rec in lanes.items()
+                    if name.endswith(("/pallas", "/fused"))}
+    check(len(kernel_lanes) == 16 and set(kernel_lanes.values()) == {1},
+          f"analysis: kernel launches a request {kernel_lanes}")
+    mesh = {name: rec for name, rec in lanes.items() if name.startswith("mesh/")}
+    for name, rec in mesh.items():
+        check(rec["collectives"]["collective-permute"] == 4 and rec["collectives"]["all-gather"] == 1
+              and rec["mesh_stats"] == {"shifts": 4, "gathers": 1} and rec["ranks"] == 16,
+              f"analysis: {name} {rec['collectives']} {rec['mesh_stats']}")
+    f64 = {}
+    for program, trace in hlo["traces"].items():
+        if program.endswith("/ref"):
+            names: dict = {}
+            for name in _F64_OP.findall(trace):
+                names[name] = names.get(name, 0) + 1
+            f64[program] = names
+    check(all(f64.values()), f"analysis: no f64 op on the card in a ref program {f64}")
+    copies = {name: rec["host_copies"] for name, rec in lanes.items()}
+    costs = rep["passes"]["costs"]
+    mesh_cost = costs["programs"]["mesh-blend/ref"]
+    peaks = {lab: mesh_cost["cuda_peak_bytes"][lab] for lab in mesh_cost["axes"]["devices"]}
+    budget = costs["budgets"]["mesh-blend"]["max_device_exponent"]
+    exponent = mesh_cost["cuda_peak_exponent"]
+    check(exponent <= budget, f"analysis: per-rank peak CUDA memory exponent {exponent} > {budget}")
+    # the shape-derived costs on the card against the committed CPU baseline
+    with open(os.path.join(SRC, "repro_torch", "analysis", "analysis_costs.json")) as f:
+        base = json.load(f)["programs"]
+    ratios = [costs["programs"][name]["points"][lab][metric] / max(ref[metric], 1)
+              for name, prog in base.items() for lab, ref in prog["points"].items()
+              for metric in ref]
+    rec = {
+        "seconds": seconds, "mesh_probe_spawn": spawns[0],
+        "kernel_launches_per_request": kernel_lanes,
+        "mesh_per_request": {name: {op: lane["collectives"][op]
+                                    for op in ("collective-permute", "all-gather")}
+                             for name, lane in mesh.items()},
+        "host_copies_per_request": copies,
+        "f64_ops_on_device": f64,
+        "mesh_cuda_peak_bytes": peaks,
+        "mesh_cuda_peak_exponent": exponent,
+        "mesh_device_exponent_budget": budget,
+        "contracts_checked": rep["passes"]["contracts"]["targets_checked"],
+        "costs_vs_cpu_baseline": [min(ratios), max(ratios)],
+    }
+    report["analysis"] = rec
+    print(f"[analysis] [{card}] {' '.join(argv)}: exit 0, 0 findings in hlo, contracts and "
+          f"costs, {seconds:.3f} s (the mesh probes' one spawn of 16 ranks, "
+          f"{spawns[0]['jobs']} jobs: {spawns[0]['seconds']} s from start to the last rank's "
+          "exit)")
+    print(f"[analysis] [{card}] kernel launches a request (the wrappers' counters): "
+          + ", ".join(f"{k} {v}" for k, v in sorted(kernel_lanes.items())))
+    print(f"[analysis] [{card}] a mesh request on each of 16 ranks: 4 shifts and 1 all-gather "
+          f"on all {len(mesh)} mesh lanes (recorder and HaloMesh.stats)")
+    print(f"[analysis] [{card}] device-to-host copies a request: "
+          + ", ".join(f"{k} {v}" for k, v in sorted(copies.items())))
+    print(f"[analysis] [{card}] per-rank peak CUDA memory over a request (min-max over ranks): "
+          + ", ".join(f"P={mesh_cost['axes']['devices'][lab]} {min(v)}-{max(v)} B"
+                      for lab, v in peaks.items())
+          + f"; fitted exponent vs P {exponent} (budget {budget})")
+    print(f"[analysis] [{card}] the shape-derived costs of the ref programs on the card over "
+          f"the committed CPU baseline: ratios {min(ratios):.4f}-{max(ratios):.4f} at "
+          f"{len(ratios)} (program, point, metric)")
+    for program, names in f64.items():
+        print(f"[analysis] [{card}] f64 ops on the card in {program} (the plain lane's "
+              "declared row sums): " + ", ".join(f"{k} x{v}" for k, v in sorted(names.items())))
+
+
 def run(report: dict) -> None:
     import torch
 
@@ -2318,6 +2437,8 @@ def run(report: dict) -> None:
     entry_points_phase(card, report)
     mesh_phase(torch, dev, card, report)
     spmd_phase(torch, dev, card, report)
+    # -- 11. the analysis package's program passes on the card
+    analysis_phase(card, report)
     report["times"] = [
         {"name": n, "shape": list(s), "label": lab, "ms": k, "plain_ms": p,
          "bound_ms": b, "bound_by": by, "floor_ms": report["floor_ms"]}

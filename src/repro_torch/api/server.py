@@ -210,17 +210,13 @@ class Server:
 
     def _build_replicated_stages(self, ctx: _ServingContext) -> None:
         fitted = ctx.fitted
-        _ = fitted.cache  # factorize up front, off the request path
-
-        def route(q):
-            return np.asarray(q, np.float32)
+        # the cache is factorized here, up front, off the request path
+        route, submit0, collect = ss.make_replicated_stages(
+            fitted.cache, fitted.cov_fn, fitted.grid)
 
         def submit(pts):
             self._count(ctx)
-            return fitted.predict(pts)
-
-        def collect(pending):
-            return pending[0].cpu().numpy(), pending[1].cpu().numpy()
+            return submit0(pts)
 
         ctx.route, ctx.submit, ctx.collect = route, submit, collect
 

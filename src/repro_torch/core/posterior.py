@@ -24,6 +24,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.gp.covariances import CovarianceParams, kdiag
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -227,6 +228,11 @@ def resolve_slot_backend(use_pallas: bool, backend: str | None) -> str:
     return backend
 
 
+@contract(
+    args={"xslots": "(S, Q, D)"},
+    returns=("(S, Q)", "(S, Q)"),
+    invariants=("outputs-f32",),
+)
 def predict_cached_slots(
     cache: PosteriorCache,
     cov_fn: Callable,

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.core import posterior
 from repro_torch.core.blend import blend_corners, corner_ids_weights
 from repro_torch.core.partition import PartitionGrid, cell_indices
@@ -606,6 +607,11 @@ def demux_results(sizes: np.ndarray, *arrays: np.ndarray) -> list[tuple]:
     return list(zip(*per_array, strict=True))
 
 
+@contract(
+    args={"values": "(P, Q)"},
+    returns="(N,)",
+    invariants=("scatter-is-gather-inverse",),
+)
 def scatter_results(table: RoutingTable, values: np.ndarray) -> np.ndarray:
     """Reassemble per-partition padded results into request order.
 

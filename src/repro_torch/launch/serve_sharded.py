@@ -67,8 +67,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.core import posterior, routing
-from repro_torch.core.blend import corner_ids_weights
+from repro_torch.core.blend import corner_ids_weights, predict_blended
 from repro_torch.core.partition import PartitionGrid
 from repro_torch.core.psvgp_spmd import grid_matches_mesh, make_shift
 from repro_torch.kernels import ops as kops
@@ -163,6 +164,15 @@ def make_router(
     return route_table
 
 
+@contract(
+    route={
+        "xq": "(P, Q, D)",
+        "stacked": "(P, 9, Q, D)",
+        "corner_slot": "(P, Q, 4)",
+        "corner_w": "(P, Q, 4)",
+    },
+    invariants=("q_max-matches-policy", "q_max-aligned"),
+)
 def make_request_stages(
     grid: PartitionGrid,
     blend_fn: Callable,
@@ -222,11 +232,15 @@ class HaloMesh:
     (``psvgp_spmd.grid_matches_mesh``).
 
     Counters of the exchange (``stats``), serving and training alike:
-    ``shifts`` (one ``batch_isend_irecv`` each), the seconds spent in them
-    (``exchange_s``), in the all-gather of the results (``gather_s``) and
+    ``shifts`` (one ``batch_isend_irecv`` each), ``gathers`` (the serving
+    lane's all-gathers of result rows, one a request), the seconds spent
+    in the shifts (``exchange_s``), in the all-gathers (``gather_s``) and
     waiting for the rank's own evaluation to reach host memory
     (``wait_s``). A collective's seconds include the wait for the slowest
     peer.
+
+    ``shift(a, dx, dy)`` is the mesh's one hop primitive
+    (``psvgp_spmd.make_shift``), built at first use.
     """
 
     axis_names = ("data", "model")
@@ -249,9 +263,11 @@ class HaloMesh:
         self.shape = {"data": gy, "model": gx}
         self.cell = (self.rank % gx, self.rank // gx)
         self.shifts = 0
+        self.gathers = 0
         self.exchange_s = 0.0
         self.gather_s = 0.0
         self.wait_s = 0.0
+        self._shift = None
 
     def peer(self, ix: int, iy: int) -> int:
         """The global rank that owns cell (ix, iy)."""
@@ -259,13 +275,21 @@ class HaloMesh:
 
         return dist.get_global_rank(self.group, iy * self.gx + ix)
 
+    def shift(self, a: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
+        """Every rank receives the payload of the rank at grid offset
+        (dx, dy), zeros off-grid; every rank must call it."""
+        if self._shift is None:
+            self._shift = make_shift(self)
+        return self._shift(a, dx, dy)
+
     def stats(self) -> dict:
         return {"ranks": self.size, "rank": self.rank, "shifts": self.shifts,
-                "exchange_s": self.exchange_s, "gather_s": self.gather_s,
-                "wait_s": self.wait_s}
+                "gathers": self.gathers, "exchange_s": self.exchange_s,
+                "gather_s": self.gather_s, "wait_s": self.wait_s}
 
     def reset_stats(self) -> None:
-        self.shifts, self.exchange_s, self.gather_s, self.wait_s = 0, 0.0, 0.0, 0.0
+        self.shifts, self.gathers = 0, 0
+        self.exchange_s, self.gather_s, self.wait_s = 0.0, 0.0, 0.0
 
 
 def mesh_for_grid(grid: PartitionGrid, group) -> HaloMesh:
@@ -291,7 +315,7 @@ def make_halo_gather(mesh: HaloMesh, axes: Sequence[str], grid: PartitionGrid) -
     call it."""
     if not grid_matches_mesh(grid, mesh, axes):
         raise ValueError(f"grid {grid.gx}x{grid.gy} must match mesh axes {tuple(axes)}")
-    shift = make_shift(mesh)
+    shift = mesh.shift
 
     def gather(x: torch.Tensor) -> torch.Tensor:
         x = x[0]
@@ -322,6 +346,15 @@ class MeshProgram(NamedTuple):
     resolve: Callable
 
 
+@contract(
+    args={
+        "hx": "(P, 9, Q, 2)",
+        "corner_slot": "(P, Q, 4)",
+        "corner_w": "(P, Q, 4)",
+    },
+    returns=("(P, Q)", "(P, Q)"),
+    invariants=("outputs-f32",),
+)
 def make_sharded_blend(
     mesh: HaloMesh,
     axes: Sequence[str],
@@ -353,7 +386,7 @@ def make_sharded_blend(
     backend = posterior.resolve_slot_backend(False, backend)
     if backend != "ref":
         kops.require_rbf(cov_fn)
-    shift = make_shift(mesh)
+    shift = mesh.shift
     S = routing.NUM_HALO_SLOTS
 
     def evaluate(cache, hx):
@@ -374,6 +407,26 @@ def make_sharded_blend(
         return routing.blend_slots(res[None, :, 0], res[None, :, 1], corner_slot, corner_w)
 
     return MeshProgram(evaluate, resolve)
+
+
+def make_replicated_stages(
+    cache: posterior.PosteriorCache, cov_fn: Callable, grid: PartitionGrid
+):
+    """The replicated lane's (route, submit, collect): route is the host's
+    float32 copy of the batch, submit enqueues the 4-corner blend of every
+    query (``blend.predict_blended`` over the whole cache, on its device),
+    collect copies both results back."""
+
+    def route(q):
+        return np.asarray(q, np.float32)
+
+    def submit(pts):
+        return predict_blended(cache, cov_fn, grid, pts)
+
+    def collect(pending):
+        return pending[0].cpu().numpy(), pending[1].cpu().numpy()
+
+    return route, submit, collect
 
 
 def make_mesh_request_stages(
@@ -442,6 +495,7 @@ def make_mesh_request_stages(
         t0 = time.perf_counter()
         dist.all_gather(parts, local, group=mesh.group)
         mesh.gather_s += time.perf_counter() - t0
+        mesh.gathers += 1
         rows = torch.stack(parts).numpy()  # (P, 2, q) in rank = cell order
         return (
             routing.scatter_results(table, rows[:, 0]),

@@ -50,11 +50,12 @@ def _lines(findings):
 
 
 def test_finding_validates_and_the_passes_are_the_source_passes():
-    assert PASSES == ("ast", "async")
+    # the source passes, among JAX's five in JAX's order
+    assert PASSES == ("hlo", "ast", "contracts", "costs", "async")
     f = Finding("ast", "RR001", "x.py:3", "m")
     assert str(f) == "[RR001] x.py:3: m" and f.to_dict()["pass_name"] == "ast"
     with pytest.raises(ValueError):
-        Finding("hlo", "RR001", "x.py:3", "m")  # a JAX-only pass
+        Finding("vibes", "RR001", "x.py:3", "m")  # no such pass
     with pytest.raises(ValueError):
         Finding("ast", "", "x.py:3", "m")
 
@@ -216,7 +217,7 @@ def test_cli_clean_on_the_shipped_port_and_imports_no_torch(tmp_path):
     roots = [a for p in SHIPPED for a in ("--root", os.path.relpath(p, REPO))]
     code = ("from repro_torch.analysis.__main__ import main; rc = main(); "
             "assert 'torch' not in sys.modules, 'the CLI imported torch'; sys.exit(rc)")
-    r = _run_cli(*roots, "--out", str(out), code=code)
+    r = _run_cli("--passes", "ast,async", *roots, "--out", str(out), code=code)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     report = json.loads(out.read_text())
     assert report["total_findings"] == 0
@@ -226,7 +227,8 @@ def test_cli_clean_on_the_shipped_port_and_imports_no_torch(tmp_path):
 
 def test_cli_exits_1_on_the_fixtures_and_writes_its_default_report(tmp_path):
     out = tmp_path / "ANALYSIS_TORCH.json"
-    r = _run_cli("--root", "tests/fixtures/torch_analysis", "--out", str(out))
+    r = _run_cli("--passes", "ast,async", "--root", "tests/fixtures/torch_analysis",
+                 "--out", str(out))
     assert r.returncode == 1, r.stdout[-2000:] + r.stderr[-2000:]
     report = json.loads(out.read_text())
     assert report["passes"]["ast"]["findings_per_rule"] == {
@@ -235,7 +237,8 @@ def test_cli_exits_1_on_the_fixtures_and_writes_its_default_report(tmp_path):
 
 
 def test_cli_exits_2_on_an_unknown_pass_and_never_writes_the_jax_report(tmp_path):
-    assert _run_cli("--passes", "hlo").returncode == 2  # a JAX-only pass
+    # a program pass on the default device, cuda, which this run hides
+    assert _run_cli("--passes", "hlo").returncode == 2
     assert _run_cli("--passes", "vibes").returncode == 2
     jax_report = tmp_path / "ANALYSIS.json"
     r = _run_cli("--out", str(jax_report))
