@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port on one NVIDIA GPU (an H100).
 
-    python chip_smoke.py [--out report.json]
+    python chip_smoke.py [--out report.json] [--seed N]
 
 Phases, each printed as it runs; any failure exits non-zero:
 
@@ -112,6 +112,25 @@ Phases, each printed as it runs; any failure exits non-zero:
               request, per-rank peak CUDA memory at P = 4, 9, 16 within the
               mesh's device-exponent budget; prints the host copies a
               request and the f64 ops the ref lanes run on the card.
+ 12. lm       the dense LM substrate at full width: qwen3-0.6b (28 layers,
+              d_model 1,024, GQA 16/8, vocab 152,064 padded) initialised on
+              the card from a torch.Generator seeded by --seed (596,180,992
+              parameters, fp32), bf16 activations. Prefill(128) + 8 decode
+              steps against the uncached forward, batch 4, in fp32 (max
+              |d logits| <= 2e-4) and bf16 (<= 2 x the bf16 forward's gap
+              to the fp32 one); launch.serve.generate (batch 4, prompt 128,
+              32 tokens, greedy): prefill and decode ms and tok/s, peak
+              CUDA memory, the host's share of a decode step
+              (torch.profiler); 8 AdamW steps on one 8 x 256 batch (lr 1e-3)
+              finite and falling; the same step twice, bitwise or not; 20
+              steps of synthetic_token_batches through launch.train's step:
+              ms p50/p95 on CUDA events, tok/s, peak memory, model FLOPs a
+              token and their share of the dense bf16 peak, the device's
+              busy share of a step (torch.profiler); then python -m
+              repro_torch.launch.serve --arch, python -m
+              repro_torch.launch.train --arch and examples/lm_train_torch.py
+              --full as subprocesses at full width. The LM path runs no
+              kernel of this repo (the JAX package's runs no Pallas kernel).
 
 Tolerances (``repro_torch.kernels.ref.tolerance_ratio``): float32 rounding
 scaled by the magnitude of the terms each output sums — prediction: per
@@ -1383,6 +1402,7 @@ def entry_point_commands() -> list:
 
 _LATENCY = re.compile(r"latency/request ms: p50=([0-9.]+) p95=([0-9.]+) p99=([0-9.]+)")
 _RATIO = re.compile(r"tolerance ratio mean ([0-9.e+-]+) var ([0-9.e+-]+)")
+_LM_SERVE = re.compile(r"prefill: .* \(([0-9,]+) tok/s\)\ndecode: .* \(([0-9,]+) tok/s\)")
 _SWEEP_ROW = re.compile(r"^\s*([0-9.]+) \|\s*(\S+) \|\s*(\S+) \|\s*([0-9.]+) \|", re.MULTILINE)
 
 
@@ -1409,6 +1429,15 @@ def parse_entry_point(label: str, out: str) -> dict:
         check(all(np.isfinite(r[1:]).all() for r in rows), f"{label}: a non-finite metric")
         rec["sweep"] = [{"delta": r[0], "rmspe": r[1], "boundary_rmsd": r[2], "fit_s": r[3]}
                         for r in rows]
+    if label.startswith("lm serve"):
+        m = _LM_SERVE.search(out)
+        check(m is not None and "device=cuda" in out, f"{label}: no decode line on cuda")
+        rec["prefill_tok_s"], rec["decode_tok_s"] = (float(v.replace(",", "")) for v in m.groups())
+    if label.startswith("lm train"):
+        rec["loss"] = [float(v) for v in re.findall(r"loss ([0-9.]+)", out)]
+        check("device=cuda" in out and "parameters: 596.18M" in out and rec["loss"]
+              and np.isfinite(rec["loss"]).all(), f"{label}: {out[-2000:]}")
+        rec["tok_s"] = [float(v.replace(",", "")) for v in re.findall(r"([0-9,]+) tok/s", out)]
     if label.startswith("e3sm_insitu"):
         check("replays bitwise" in out, "e3sm_insitu: the store's replay differs")
         rec["refit_s"] = [float(v) for v in re.findall(r"refit \d+ iters in ([0-9.]+)s", out)]
@@ -1423,7 +1452,7 @@ def entry_points_phase(card: str, report: dict, commands=None) -> None:
     or fit seconds."""
     env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE")}
     env["PYTHONPATH"] = SRC
-    report["entry_points"] = {}
+    report.setdefault("entry_points", {})
     for label, argv in commands or entry_point_commands():
         t0 = time.perf_counter()
         try:
@@ -1445,6 +1474,10 @@ def entry_points_phase(card: str, report: dict, commands=None) -> None:
                              f"{s['boundary_rmsd']}, fit {s['fit_s']} s" for s in rec["sweep"])
         if "refit_s" in rec:
             what = "refits " + ", ".join(f"{s} s" for s in rec["refit_s"])
+        if "decode_tok_s" in rec:
+            what = f"prefill {rec['prefill_tok_s']} tok/s, decode {rec['decode_tok_s']} tok/s"
+        if "loss" in rec:
+            what = f"losses {rec['loss']}, tok/s {rec['tok_s']}"
         print(f"[entry] [{card}] {label}: {seconds:.3f} s; {what}")
 
 
@@ -2116,7 +2149,282 @@ def analysis_phase(card: str, report: dict) -> None:
               "declared row sums): " + ", ".join(f"{k} x{v}" for k, v in sorted(names.items())))
 
 
-def run(report: dict) -> None:
+# --------------------------------------------------------------------------
+# 12. the dense LM substrate at full width: qwen3-0.6b served and trained
+# --------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-0.6b"
+LM_PARAMS = 596_180_992  # 155.7M embedding (152,064 x 1,024) + 28 layers of 15.73M + the norm
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 128, 32
+LM_CHECKED = 8  # decode steps held to the uncached forward
+# float32: prefill + decode against one uncached forward, both on cuBLAS at
+# full width (28 layers, 1,024-wide sums in other orders); the JAX
+# package's bound at 4 layers of 128 (tests/test_models.py:100) holds at
+# full width too, whose logits are ~0.5 (tied 0.02-scale embeddings)
+LM_FP32_ATOL = 2e-4
+# bfloat16: the cached and uncached paths each round every activation to
+# bf16, so each deviates from the float32 forward by bf16 noise; their gap
+# may be at most the sum of two such deviations, the largest measured one
+# twice
+LM_BF16_FACTOR = 2.0
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_LR = 8, 256, 1e-3
+LM_OVERFIT_STEPS, LM_TIMED_STEPS = 8, 20
+LM_PROFILED = 8  # decode steps in the profiler window
+LM_PROFILED_STEPS = 3  # training steps in the profiler window
+PEAK_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+
+
+def lm_flops_per_token(cfg, seq: int) -> float:
+    """Model FLOPs a trained token: 6 x the matmul parameters (every layer's
+    projections and MLP, and the tied head's D x V) plus attention's 12 x
+    L x H x hd x S (PaLM's count, the causal half not subtracted)."""
+    hd = cfg.resolved_head_dim
+    layer = (cfg.d_model * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+             + cfg.num_heads * hd * cfg.d_model + 3 * cfg.d_model * cfg.d_ff)
+    matmul = cfg.num_layers * layer + cfg.d_model * cfg.padded_vocab_size
+    return 6.0 * matmul + 12.0 * cfg.num_layers * cfg.num_heads * hd * seq
+
+
+def _lm_cache_gap(torch, params, cfg, tokens) -> tuple[float, object]:
+    """max |logits| gap of prefill(S) + LM_CHECKED decode steps (positions
+    S - 1 .. S + LM_CHECKED - 1) against one uncached forward over the
+    S + LM_CHECKED tokens (unmasked logits), and that forward's logits at
+    those positions."""
+    from repro_torch.models.transformer import forward
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+
+    S = tokens.shape[1] - LM_CHECKED
+    last, cache = make_prefill_step(cfg, cache_len=S + LM_CHECKED)(params, tokens[:, :S])
+    decode = make_decode_step(cfg)
+    got = [last]
+    for i in range(LM_CHECKED):
+        lg, cache = decode(params, cache, S + i, tokens[:, S + i:S + i + 1])
+        got.append(lg)
+    with torch.no_grad():
+        full, _, _ = forward(params, cfg, tokens)
+    want = full[:, S - 1:]
+    ok = want > -1e29
+    gap = float((torch.stack(got, 1) - want)[ok].abs().max())
+    return gap, want
+
+
+def lm_phase(torch, dev, card: str, report: dict, seed: int) -> None:
+    """Phase 12: qwen3-0.6b at full width (bf16 activations, fp32
+    parameters) from a torch.Generator on the card seeded from ``seed``.
+    Gates: the parameter count; prefill + 8 decode steps against the
+    uncached forward in fp32 (LM_FP32_ATOL) and bf16 (LM_BF16_FACTOR x the
+    bf16 forward's gap to the fp32 one); 8 AdamW steps on one batch finite
+    and falling; 20 synthetic batches finite; the LM CLIs at full width.
+    Prints prefill and decode times and rates (launch.serve.generate, the
+    second of two runs), peak CUDA memory, the host's share of a decode
+    step (torch.profiler), train ms a step p50/p95 on CUDA events,
+    tokens/s and the model FLOPs' share of the dense bf16 peak."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.launch.serve import generate, lm_prompts
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models.transformer import init_model_params
+    from repro_torch.optim import adam_init, tree_leaves
+    from repro_torch.runtime.steps import (
+        TrainState,
+        make_decode_step,
+        make_prefill_step,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = get(LM_ARCH)
+    rec: dict = {"arch": cfg.name, "dtype": cfg.dtype, "seed": seed}
+    gen = torch.Generator(dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_model_params(gen, cfg)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    rec["parameters"] = n_params
+    check(n_params == LM_PARAMS, f"lm: {n_params} parameters, not {LM_PARAMS}")
+    check(all(a.device.type == dev.type and a.dtype == torch.float32 for a in tree_leaves(params)),
+          "lm: a parameter is not fp32 on the card")
+    print(f"[lm] [{card}] {cfg.name}: {n_params:,} parameters initialised on the card in "
+          f"{rec['init_s']:.3f} s (seed {seed})")
+
+    # -- 12a. the KV cache against the uncached forward, fp32 then bf16 ----
+    tokens = torch.from_numpy(lm_prompts(cfg, LM_BATCH, LM_PROMPT + LM_CHECKED, seed)).to(dev)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gap32, full32 = _lm_cache_gap(torch, params, cfg32, tokens)
+    gap16, full16 = _lm_cache_gap(torch, params, cfg, tokens)
+    ok = full32 > -1e29
+    bf16_noise = float((full16 - full32)[ok].abs().max())
+    del full32, full16
+    rec.update(cache_gap_fp32=gap32, cache_gap_bf16=gap16, bf16_vs_fp32_forward=bf16_noise)
+    print(f"[lm] [{card}] prefill({LM_PROMPT}) + {LM_CHECKED} decode steps vs the uncached "
+          f"forward, batch {LM_BATCH}: fp32 max|d logits| {gap32:.3e} (bound {LM_FP32_ATOL}); "
+          f"bf16 {gap16:.3e} (bound {LM_BF16_FACTOR} x {bf16_noise:.3e}, the bf16 forward's gap "
+          "to the fp32 one)")
+    check(np.isfinite(gap32) and gap32 <= LM_FP32_ATOL, f"lm: fp32 cache gap {gap32}")
+    check(np.isfinite(gap16) and gap16 <= LM_BF16_FACTOR * bf16_noise,
+          f"lm: bf16 cache gap {gap16} > {LM_BF16_FACTOR} x {bf16_noise}")
+
+    # -- 12b. serve: launch.serve.generate, bf16, greedy -------------------
+    prompts = tokens[:, :LM_PROMPT].contiguous()
+    first = generate(params, cfg, prompts, LM_GEN, temperature=0.0)
+    torch.cuda.reset_peak_memory_stats()
+    out = generate(params, cfg, prompts, LM_GEN, temperature=0.0)
+    rec["serve_peak_bytes"] = torch.cuda.max_memory_allocated()
+    toks = out["tokens"]
+    check(tuple(toks.shape) == (LM_BATCH, LM_GEN) and bool((toks >= 0).all())
+          and bool((toks < cfg.vocab_size).all()), f"lm: generated {tuple(toks.shape)}")
+    rec["greedy_repeat_equal"] = bool(torch.equal(first["tokens"], toks))
+    pre_s, dec_s = out["prefill_s"], out["decode_s"]
+    rec.update(prefill_ms=1e3 * pre_s, prefill_tok_s=LM_BATCH * LM_PROMPT / pre_s,
+               decode_ms_per_step=1e3 * dec_s / (LM_GEN - 1),
+               decode_tok_s=LM_BATCH * (LM_GEN - 1) / dec_s,
+               first_run_prefill_ms=1e3 * first["prefill_s"],
+               first_run_decode_ms_per_step=1e3 * first["decode_s"] / (LM_GEN - 1))
+    print(f"[lm] [{card}] serve (launch.serve.generate, bf16, greedy, second run): prefill "
+          f"{LM_BATCH}x{LM_PROMPT} in {rec['prefill_ms']:.3f} ms ({rec['prefill_tok_s']:.1f} "
+          f"tok/s); decode {rec['decode_ms_per_step']:.3f} ms a step x {LM_GEN - 1} "
+          f"({rec['decode_tok_s']:.1f} tok/s); peak CUDA memory {rec['serve_peak_bytes']:,} B; "
+          f"first run {rec['first_run_prefill_ms']:.3f} / {rec['first_run_decode_ms_per_step']:.3f}"
+          f" ms; greedy tokens equal across runs: {rec['greedy_repeat_equal']}")
+
+    # the host's share of a decode step: torch.profiler over LM_PROFILED steps
+    _, cache = make_prefill_step(cfg, cache_len=LM_PROMPT + LM_GEN)(params, prompts)
+    decode = make_decode_step(cfg)
+    tok = toks[:, :1]
+    decode(params, cache, LM_PROMPT, tok)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(LM_PROFILED):
+            decode(params, cache, LM_PROMPT + 1 + i, tok)
+        torch.cuda.synchronize()
+        window_us = 1e6 * (time.perf_counter() - t0)
+    busy_us, per_name = device_busy(torch, prof, LM_PROFILED)
+    ops = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    del cache
+    if busy_us > 0:
+        rec["decode_device_busy_share"] = busy_us / window_us
+        rec["decode_host_share"] = 1.0 - busy_us / window_us
+        rec["decode_device_us_per_step"] = per_name
+        rec["decode_device_ops_per_step"] = ops / LM_PROFILED
+        print(f"[lm] [{card}] decode step under torch.profiler: device busy "
+              f"{busy_us / LM_PROFILED:.1f} us of {window_us / LM_PROFILED:.1f} us (host share "
+              f"{rec['decode_host_share']:.4f}), {ops / LM_PROFILED:.0f} device ops a step; "
+              "top device ops, us a step: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in per_name.items()))
+    else:
+        rec["decode_host_share"] = None
+        print(f"[lm] [{card}] decode step host share: not measured (torch.profiler saw no "
+              "device activity)")
+
+    # -- 12c. train: AdamW + clip, bf16 activations, remat per period ------
+    state = TrainState(params, adam_init(params), 0)
+    del params
+    step = make_train_step(cfg, learning_rate=LM_TRAIN_LR)
+    toks_np, tg_np = next(synthetic_token_batches(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                                  seed=seed))
+    batch = device_batch(toks_np, tg_np, dev)
+    losses = []
+    for _ in range(LM_OVERFIT_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    rec["overfit_losses"] = losses
+    print(f"[lm] [{card}] {LM_OVERFIT_STEPS} steps on one batch ({LM_TRAIN_BATCH}x"
+          f"{LM_TRAIN_SEQ}, lr {LM_TRAIN_LR}): losses " + ", ".join(f"{v:.4f}" for v in losses))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"lm: the loss on one repeated batch did not fall: {losses}")
+
+    # two runs of the same step from the same state: bitwise on the card?
+    again = [step(state, batch)[0] for _ in range(2)]
+    rec["train_step_repeat_bitwise"] = all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(again[0].params),
+                                          tree_leaves(again[1].params), strict=True))
+    del again
+    print(f"[lm] [{card}] the same step twice from the same state, bitwise: "
+          f"{rec['train_step_repeat_bitwise']}")
+
+    data = synthetic_token_batches(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=seed,
+                                   num_batches=LM_TIMED_STEPS, start_row=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, losses = [], []
+    t0 = time.perf_counter()
+    for toks_np, tg_np in data:
+        b = device_batch(toks_np, tg_np, dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        events.append((start, end))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    check(all(np.isfinite(losses)), f"lm: a non-finite loss in {losses}")
+    flops = lm_flops_per_token(cfg, LM_TRAIN_SEQ)
+    p50 = float(np.percentile(ms, 50))
+    tok_s = LM_TRAIN_BATCH * LM_TRAIN_SEQ / (p50 / 1e3)
+    rec.update(train_ms=_pct(ms), train_tok_s=tok_s,
+               train_wall_tok_s=LM_TRAIN_BATCH * LM_TRAIN_SEQ * LM_TIMED_STEPS / wall_s,
+               train_peak_bytes=torch.cuda.max_memory_allocated(),
+               flops_per_token=flops, bf16_peak_share=tok_s * flops / PEAK_BF16_FLOP_PER_S,
+               train_losses=losses)
+    print(f"[lm] [{card}] {LM_TIMED_STEPS} steps of synthetic_token_batches through "
+          f"launch.train's step ({LM_TRAIN_BATCH}x{LM_TRAIN_SEQ} tokens): p50 {p50:.3f} ms, p95 "
+          f"{rec['train_ms']['p95_ms']:.3f} ms (CUDA events), {tok_s:.1f} tok/s at p50 "
+          f"({rec['train_wall_tok_s']:.1f} over the host's clock); peak CUDA memory "
+          f"{rec['train_peak_bytes']:,} B; model FLOPs a token {flops:.4e} (6N + attention), "
+          f"{rec['bf16_peak_share']:.4f} of the dense bf16 peak; losses {losses[0]:.4f} .. "
+          f"{losses[-1]:.4f}")
+    # where a training step's time goes: torch.profiler over LM_PROFILED_STEPS
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_PROFILED_STEPS):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        window_us = 1e6 * (time.perf_counter() - t0)
+    busy_us, per_name = device_busy(torch, prof, LM_PROFILED_STEPS)
+    ops = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    if busy_us > 0:
+        rec["train_device_busy_share"] = busy_us / window_us
+        rec["train_device_us_per_step"] = per_name
+        rec["train_device_ops_per_step"] = ops / LM_PROFILED_STEPS
+        print(f"[lm] [{card}] train step under torch.profiler: device busy "
+              f"{busy_us / LM_PROFILED_STEPS:.1f} us of {window_us / LM_PROFILED_STEPS:.1f} us "
+              f"(share {rec['train_device_busy_share']:.4f}), "
+              f"{rec['train_device_ops_per_step']:.0f} device ops a step; top device ops, us a "
+              "step: " + ", ".join(f"{k} {v:.1f}" for k, v in per_name.items()))
+    else:
+        rec["train_device_busy_share"] = None
+        print(f"[lm] [{card}] train step device busy share: not measured (torch.profiler saw "
+              "no device activity)")
+    del state, batch
+    torch.cuda.empty_cache()
+
+    # -- 12d. the LM entry points at full width, as subprocesses -----------
+    entry_points_phase(card, report, commands=[
+        ("lm serve --arch", ["-m", "repro_torch.launch.serve", "--arch", LM_ARCH, "--batch",
+                             str(LM_BATCH), "--prompt-len", str(LM_PROMPT), "--gen",
+                             str(LM_GEN), "--temperature", "0"]),
+        ("lm train --arch", ["-m", "repro_torch.launch.train", "--arch", LM_ARCH, "--steps",
+                             "10", "--batch", str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ),
+                             "--lr", "1e-3", "--log-every", "5"]),
+        ("lm train examples/lm_train_torch.py --full",
+         ["examples/lm_train_torch.py", "--full", "--steps", "20", "--seq", str(LM_TRAIN_SEQ)]),
+    ])
+    rec["phase_s"] = time.perf_counter() - t_phase
+    report["lm"] = rec
+    print(f"[lm] [{card}] phase 12: {rec['phase_s']:.3f} s")
+
+
+def run(report: dict, seed: int = 0) -> None:
     import torch
 
     from repro_torch import api
@@ -2439,6 +2747,8 @@ def run(report: dict) -> None:
     spmd_phase(torch, dev, card, report)
     # -- 11. the analysis package's program passes on the card
     analysis_phase(card, report)
+    # -- 12. the dense LM substrate at full width
+    lm_phase(torch, dev, card, report, seed)
     report["times"] = [
         {"name": n, "shape": list(s), "label": lab, "ms": k, "plain_ms": p,
          "bound_ms": b, "bound_by": by, "floor_ms": report["floor_ms"]}
@@ -2483,6 +2793,7 @@ def run(report: dict) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the full report as JSON here")
+    ap.add_argument("--seed", type=int, default=0, help="phase 12's parameters and tokens")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"chip_smoke: the port's sources are not beside this file ({SRC})", file=sys.stderr)
@@ -2495,7 +2806,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
     report: dict = {}
     try:
-        run(report)
+        run(report, args.seed)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

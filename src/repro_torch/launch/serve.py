@@ -1,6 +1,16 @@
-"""The GP serving driver of the port — the GP half of ``repro.launch.serve``.
+"""Serving entry point of the port: batched prefill + autoregressive decode of an
+LM, and the GP serving mode for the stitched PSVGP surface (port of
+``repro.launch.serve``).
 
-Fit the partitioned surface on the synthetic E3SM-like field (or load a
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --batch 4 --prompt-len 128 --gen 32 [--smoke] [--device cpu]
+
+LM mode: random parameters from ``--seed`` on the device, seeded prompts,
+one prefill step, then ``--gen - 1`` decode steps against the KV cache
+(``runtime.steps``); greedy at ``--temperature 0``, else sampled from a
+``torch.Generator`` seeded from ``--seed`` (the draws are not JAX's).
+
+GP mode (``--gp``): fit the partitioned surface on the synthetic E3SM-like field (or load a
 saved artifact, either package's) and answer a stream of query batches
 with a latency/throughput report. A thin shim over ``repro_torch.api``:
 the flags parse into a ``FitConfig``/``ServeConfig`` and ``api.Server``
@@ -11,12 +21,14 @@ serves.
 ``--sharded`` serves the halo program (``repro_torch.launch.serve_sharded``:
 the one-process program, or the mesh lane under ``torchrun``); ``--http``
 serves over HTTP (``repro_torch.net.server``). Runs on ``--device``,
-``cuda`` when absent. The LM serving half (``--arch``) is not ported yet.
+``cuda`` when absent.
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+import numpy as np
 
 
 def serve_gp(args) -> None:
@@ -52,11 +64,94 @@ def serve_gp(args) -> None:
     print(f"throughput: {qps:,.0f} points/s")
 
 
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def lm_prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
+    """The JAX CLI's prompts: (batch, prompt_len) int32 from
+    ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+
+
+def generate(params, cfg, prompts, gen: int, *, temperature: float = 0.0,
+             generator=None) -> dict:
+    """Prefill ``prompts`` (B, S) on their device, then ``gen - 1`` decode
+    steps: the first token greedy, as the JAX CLI's, the rest greedy at
+    ``temperature`` 0, else sampled with ``generator``. Returns the (B,
+    gen) tokens, the last step's logits and both phases' seconds, each
+    timed to a synchronize."""
+    import torch
+
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+
+    B, S = prompts.shape
+    dev = prompts.device
+    prefill = make_prefill_step(cfg, cache_len=S + gen)
+    decode = make_decode_step(cfg)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompts)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    generated = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, cache = decode(params, cache, S + i, tok)
+        if temperature > 0:
+            probs = torch.softmax(logits / temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=generator)
+        else:
+            tok = torch.argmax(logits, dim=-1)[:, None]
+        generated.append(tok)
+    _sync(dev)
+    t_dec = time.perf_counter() - t0
+    return {"tokens": torch.cat(generated, dim=1), "logits": logits,
+            "prefill_s": t_prefill, "decode_s": t_dec}
+
+
+def serve_lm(args) -> None:
+    """The LM serving loop of ``--arch``, at full width unless ``--smoke``."""
+    import torch
+
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.device import resolve_device
+    from repro_torch.models.transformer import init_model_params
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_model_params(gen, cfg)
+    B, S = args.batch, args.prompt_len
+    prompts = torch.from_numpy(lm_prompts(cfg, B, S, args.seed)).to(dev)
+    out = generate(params, cfg, prompts, args.gen, temperature=args.temperature, generator=gen)
+    t_prefill, t_dec = out["prefill_s"], out["decode_s"]
+    print(f"arch={cfg.name} device={dev} dtype={cfg.dtype}")
+    print(f"prefill: {B}x{S} tokens in {t_prefill * 1e3:.1f} ms "
+          f"({B * S / t_prefill:,.0f} tok/s)")
+    print(f"decode: {args.gen} steps x {B} seqs in {t_dec * 1e3:.1f} ms "
+          f"({B * (args.gen - 1) / max(t_dec, 1e-9):,.0f} tok/s)")
+    print("sample row 0:", out["tokens"][0].cpu().numpy()[:16], "...")
+
+
 def main() -> None:
     from repro_torch.launch.serve_sharded import add_gp_args
 
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", help="LM serving: not ported yet (ROADMAP queue 1, item 6)")
+    ap.add_argument("--arch", help="LM serving: the architecture id (e.g. qwen3-0.6b)")
+    ap.add_argument("--smoke", action="store_true", help="LM: the reduced config")
+    ap.add_argument("--batch", type=int, default=4, help="LM: sequences")
+    ap.add_argument("--prompt-len", type=int, default=64, help="LM: prompt tokens")
+    ap.add_argument("--gen", type=int, default=32, help="LM: generated tokens")
+    ap.add_argument("--temperature", type=float, default=1.0,
+                    help="LM: sampling temperature (0 = greedy)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--gp", action="store_true", help="serve the stitched PSVGP surface")
     ap.add_argument("--sharded", action="store_true",
@@ -66,16 +161,20 @@ def main() -> None:
     add_gp_args(ap)
     args = ap.parse_args()
 
-    if args.arch:
-        ap.exit(2, f"--arch {args.arch}: the LM substrate is not ported to "
-                   "repro_torch yet (ROADMAP queue 1, item 6); serve it with "
-                   "python -m repro.launch.serve, or serve the GP with --gp\n")
     if args.sharded and not args.gp:
         ap.error("--sharded only applies to the GP serving mode (add --gp)")
     if args.http and not args.gp:
         ap.error("--http only applies to the GP serving mode (add --gp)")
     if not args.gp:
-        ap.error("--gp required (the LM serving mode is not ported yet)")
+        if not args.arch:
+            ap.error("--arch required (or --gp for the PSVGP surface)")
+        if min(args.batch, args.prompt_len, args.gen) < 1:
+            ap.error("--batch, --prompt-len and --gen must be >= 1")
+        try:
+            serve_lm(args)
+        except NotImplementedError as e:
+            ap.exit(2, f"--arch {args.arch}: {e}\n")
+        return
     if args.gp_requests < 1 or args.gp_batch < 1:
         ap.error("--gp-requests and --gp-batch must be >= 1")
     if args.http:

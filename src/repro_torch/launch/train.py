@@ -1,0 +1,95 @@
+"""Training entry point for the LM substrate (port of ``repro.launch.train``).
+
+Runs real steps on one device (``--device``, ``cuda`` when absent; raises
+without a GPU unless given ``--device cpu``): random parameters from
+``--seed``, the synthetic token pipeline, AdamW with global-norm clipping
+(``runtime.steps.make_train_step``), checkpoints in the JAX package's
+format. The loss is read back to the host only every ``--log-every``
+steps.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+      --steps 50 --batch 8 --seq 128 [--smoke] [--device cpu]
+
+``--ckpt-dir`` resumes from the latest checkpoint there (either package's)
+and continues the token stream and the step count where the saved state
+stopped; JAX's CLI restarts both at 0. The mesh of JAX's CLI
+(``make_host_mesh``, ``state_pspecs``) waits for the sharding slice.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+
+def device_batch(tokens: np.ndarray, targets: np.ndarray, device) -> dict:
+    """One (tokens, targets) pair of ``synthetic_token_batches`` on ``device``."""
+    import torch
+
+    return {"tokens": torch.from_numpy(tokens).to(device),
+            "targets": torch.from_numpy(targets).to(device)}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true", help="reduced config (CPU-sized)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="cuda when absent (raises on a machine without a GPU)")
+    args = ap.parse_args()
+    if min(args.steps, args.batch, args.seq, args.log_every) < 1 or args.ckpt_every < 0:
+        ap.error("--steps, --batch, --seq and --log-every must be >= 1, --ckpt-every >= 0")
+
+    import torch
+
+    from repro_torch.checkpoint import load_train_state, save_train_state
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.device import resolve_device
+    from repro_torch.optim import tree_leaves
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    print(f"arch={cfg.name} device={dev}")
+    try:
+        state = init_train_state(torch.Generator(device=dev).manual_seed(args.seed), cfg)
+    except NotImplementedError as e:
+        ap.exit(2, f"--arch {args.arch}: {e}\n")
+    if args.ckpt_dir:
+        restored = load_train_state(args.ckpt_dir, state)
+        if restored is not None:
+            state = restored
+            print(f"restored checkpoint at step {int(state.step)}")
+    n_params = sum(leaf.numel() for leaf in tree_leaves(state.params))
+    print(f"parameters: {n_params / 1e6:.2f}M")
+
+    step_fn = make_train_step(cfg, learning_rate=args.lr)
+    start = int(state.step)
+    data = synthetic_token_batches(cfg.vocab_size, args.batch, args.seq, seed=args.seed,
+                                   num_batches=args.steps, start_row=start)
+    t0 = time.perf_counter()
+    for i, (toks, targets) in enumerate(data, start=start + 1):
+        state, metrics = step_fn(state, device_batch(toks, targets, dev))
+        if (i - start) % args.log_every == 0:
+            loss, ce = float(metrics["loss"]), float(metrics["ce"])  # the one host read
+            dt = time.perf_counter() - t0
+            tok_s = args.batch * args.seq * args.log_every / dt
+            print(f"step {i:5d}  loss {loss:.4f}  ce {ce:.4f}  {tok_s:,.0f} tok/s")
+            t0 = time.perf_counter()
+        if args.ckpt_dir and args.ckpt_every and i % args.ckpt_every == 0:
+            print(f"checkpoint -> {save_train_state(args.ckpt_dir, i, state)}")
+    print("done.")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,205 @@
+"""Grouped-query attention (w/ qk-norm, biases, sliding window) in PyTorch.
+
+Port of the GQA half of ``repro.models.attention``: ``einsum`` logits in
+float32, a ``-1e30`` mask fill (not ``-inf``, so a fully masked row stays
+finite, as in JAX), a float32 softmax whose weights are cast back to the
+query dtype. Cross-attention (``encoder_kv``) comes with the encoder
+slice and MLA with its own (``ROADMAP.md`` queue 1, item 6).
+
+Cache convention (serve path): a dict per attention block,
+  {"k": (B, S_cache, KV, hd), "v": (B, S_cache, KV, hd)}
+plus the write position carried by the caller. Sliding-window blocks
+allocate only ``window`` slots and write modulo window (a ring buffer).
+Where JAX returns an updated copy of the cache, the port writes the new
+keys and values into the given cache tensors in place (they are views of
+the model's stacked cache) and returns the same dict.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.common import (
+    Params,
+    apply_rope,
+    causal_mask,
+    dense_init,
+    rms_norm,
+    rope_angles,
+    window_mask,
+)
+from repro_torch.models.config import ModelConfig
+
+_NEG_INF = -1e30
+
+
+def init_gqa_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple[int, ...] = ()) -> Params:
+    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    f32 = {"dtype": torch.float32, "device": gen.device}
+    p = {
+        "wq": dense_init(gen, (D, H * hd), lead=lead),
+        "wk": dense_init(gen, (D, KV * hd), lead=lead),
+        "wv": dense_init(gen, (D, KV * hd), lead=lead),
+        "wo": dense_init(gen, (H * hd, D), lead=lead),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(lead + (H * hd,), **f32)
+        p["bk"] = torch.zeros(lead + (KV * hd,), **f32)
+        p["bv"] = torch.zeros(lead + (KV * hd,), **f32)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(lead + (hd,), **f32)
+        p["k_norm"] = torch.ones(lead + (hd,), **f32)
+    return p
+
+
+def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = x.dtype
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, num_kv: int) -> torch.Tensor:
+    """Grouped scaled-dot-product attention.
+    q (B,S,H,hd), k/v (B,T,KV,hd), mask (S,T) or (B,S,T) bool."""
+    B, S, H, hd = q.shape
+    G = H // num_kv
+    qg = q.reshape(B, S, num_kv, G, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32)
+    logits = logits / math.sqrt(hd)
+    m = mask if mask.ndim == 3 else mask[None]
+    logits = torch.where(m[:, None, None, :, :], logits, _NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(B, S, H, hd)
+
+
+def _sdpa_chunked(q, k, v, num_kv: int, window: int, chunk: int) -> torch.Tensor:
+    """Query-chunked causal/windowed attention: the (.., S, S) float32
+    logits are serialized to (.., chunk, S) chunks, each recomputed in the
+    backward (``torch.utils.checkpoint`` for ``jax.checkpoint``; the same
+    math, reassociated)."""
+    B, S, H, hd = q.shape
+    grad = torch.is_grad_enabled()
+
+    def body(qi, off):
+        m = (window_mask(qi.shape[1], S, window, off, q.device) if window
+             else causal_mask(qi.shape[1], S, off, q.device))
+        return _sdpa(qi, k, v, m, num_kv)
+
+    outs = []
+    for ci in range(S // chunk):
+        qi = q[:, ci * chunk:(ci + 1) * chunk]
+        if grad:
+            outs.append(checkpoint(body, qi, ci * chunk, use_reentrant=False))
+        else:
+            outs.append(body(qi, ci * chunk))
+    return torch.cat(outs, dim=1)
+
+
+def _write(buf: torch.Tensor, slot, new: torch.Tensor) -> None:
+    """buf[:, slot] = new[:, 0] in place; ``slot`` a host int or a () tensor
+    on buf's device (no host sync either way)."""
+    if isinstance(slot, torch.Tensor):
+        buf.index_copy_(1, slot.reshape(1).to(torch.long), new.to(buf.dtype))
+    else:
+        buf[:, slot] = new[:, 0].to(buf.dtype)
+
+
+def gqa_forward(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    window: int = 0,
+    cache: Params | None = None,
+    cache_pos: torch.Tensor | int | None = None,
+) -> tuple[torch.Tensor, Params | None]:
+    """One attention call.
+
+    Modes:
+      train: cache None — the full sequence, causal (windowed) mask;
+      prefill: x (B, S > 1, D), cache allocated — attend within the prompt
+        and fill the cache;
+      decode: x (B, 1, D), cache holds history, cache_pos = current length.
+    """
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = x.dtype
+    dev = x.device
+
+    q, k, v = _qkv(p, cfg, x)
+    if cfg.pos_kind == "rope":
+        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+    if cache is None:
+        # --- training: full sequence ---
+        qc = cfg.attn_q_chunk
+        if qc and S > qc and S % qc == 0:
+            out = _sdpa_chunked(q, k, v, KV, window, qc)
+        else:
+            mask = window_mask(S, S, window, device=dev) if window else causal_mask(S, S, device=dev)
+            out = _sdpa(q, k, v, mask, KV)
+    elif S > 1:
+        # --- prefill: fill the cache, attend within the prompt ---
+        mask = window_mask(S, S, window, device=dev) if window else causal_mask(S, S, device=dev)
+        out = _sdpa(q, k, v, mask, KV)
+        Sc = cache["k"].shape[1]
+        if window and S >= Sc:
+            # ring cache: slot s holds the key of absolute position
+            # base + (s - base) % Sc (the unique position in [S-Sc, S) that
+            # decode's slot = pos % Sc addressing maps to slot s); torch's %
+            # takes the divisor's sign, as jnp's does
+            base = S - Sc
+            take_ids = base + (torch.arange(Sc, device=dev) - base) % Sc
+            cache["k"].copy_(k[:, take_ids])
+            cache["v"].copy_(v[:, take_ids])
+        else:
+            # slots [0, S) in order (a window longer than the prompt, or
+            # the full cache)
+            cache["k"][:, :S] = k.to(cache["k"].dtype)
+            cache["v"][:, :S] = v.to(cache["v"].dtype)
+    else:
+        # --- decode: single step against the cache ---
+        kk, vv = cache["k"], cache["v"]
+        Sc = kk.shape[1]
+        slot = (cache_pos % Sc) if window else cache_pos
+        _write(kk, slot, k)
+        _write(vv, slot, v)
+        ar = torch.arange(Sc, device=dev)
+        if window:
+            valid = (ar <= slot) | (cache_pos >= Sc)  # ring full => all valid
+        else:
+            valid = ar <= cache_pos
+        mask = valid[None, None, :]  # (B=1bc, S=1, T)
+        out = _sdpa(q, kk.to(dt), vv.to(dt), mask, KV)
+
+    return out.reshape(B, S, H * hd) @ p["wo"].to(dt), cache
+
+
+def init_gqa_cache(cfg: ModelConfig, batch: int, seq: int, window: int, dtype,
+                   device=None, lead: tuple[int, ...] = ()) -> Params:
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    Sc = min(seq, window) if window else seq
+    return {
+        "k": torch.zeros(lead + (batch, Sc, KV, hd), dtype=dtype, device=device),
+        "v": torch.zeros(lead + (batch, Sc, KV, hd), dtype=dtype, device=device),
+    }

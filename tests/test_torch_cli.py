@@ -179,15 +179,42 @@ def test_serve_gp_http_answers_a_request(tmp_path):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--arch", "qwen3-0.6b"], "LM substrate is not ported"),
+    (["--arch", "deepseek-moe-16b", "--smoke", "--device", "cpu"],
+     "MoE blocks: ROADMAP.md queue 1, item 6.2"),
     (["--sharded"], "add --gp"),
     (["--http"], "add --gp"),
-    ([], "--gp required"),
+    ([], "--arch required (or --gp"),
     (["--gp", "--gp-requests", "0"], "must be >= 1"),
 ], ids=["arch", "sharded-without-gp", "http-without-gp", "nothing", "zero-requests"])
 def test_serve_refuses(argv, needle):
     r = _run(["-m", "repro_torch.launch.serve", *argv], timeout=120)
     assert r.returncode != 0 and needle in r.stderr, r.stderr[-2000:]
+
+
+def test_serve_lm_decodes_a_smoke_model_on_the_cpu():
+    r = _run(["-m", "repro_torch.launch.serve", "--arch", "qwen3-0.6b", "--smoke", "--device",
+              "cpu", "--gen", "4", "--temperature", "0"], timeout=180)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "arch=qwen3-0.6b-smoke device=cpu" in r.stdout
+    assert "prefill: 4x64 tokens in" in r.stdout
+    assert "decode: 4 steps x 4 seqs in" in r.stdout
+    row = re.search(r"sample row 0: \[([0-9 ]+)\]", r.stdout).group(1).split()
+    assert len(row) == 4 and all(0 <= int(t) < 512 for t in row)
+
+
+def test_train_lm_runs_and_resumes_on_the_cpu(tmp_path):
+    argv = ["-m", "repro_torch.launch.train", "--arch", "qwen3-0.6b", "--smoke", "--device",
+            "cpu", "--batch", "2", "--seq", "32", "--log-every", "2", "--ckpt-dir",
+            str(tmp_path), "--ckpt-every", "2"]
+    r = _run([*argv, "--steps", "4"], timeout=180)
+    assert r.returncode == 0, r.stderr[-3000:]
+    losses = [float(v) for v in re.findall(r"loss ([0-9.]+)", r.stdout)]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert (tmp_path / "step_00000004").is_dir() and "done." in r.stdout
+    r = _run([*argv, "--steps", "2"], timeout=180)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "restored checkpoint at step 4" in r.stdout and "step     6" in r.stdout
+    assert (tmp_path / "latest").read_text() == "step_00000006"
 
 
 def test_entry_points_refuse_to_run_without_a_gpu_unless_told_cpu():
@@ -196,13 +223,19 @@ def test_entry_points_refuse_to_run_without_a_gpu_unless_told_cpu():
     assert r.returncode != 0 and "no CUDA device" in r.stderr and "served" not in r.stdout
     r = _run(["-m", "repro_torch.api.smoke", "--grid", "2", "--n", "300"], timeout=120)
     assert r.returncode != 0 and "no CUDA device" in r.stderr
+    r = _run(["-m", "repro_torch.launch.serve", "--arch", "qwen3-0.6b", "--smoke"], timeout=120)
+    assert r.returncode != 0 and "no CUDA device" in r.stderr and "prefill" not in r.stdout
+    r = _run(["-m", "repro_torch.launch.train", "--arch", "qwen3-0.6b", "--smoke", "--steps",
+              "1"], timeout=120)
+    assert r.returncode != 0 and "no CUDA device" in r.stderr and "parameters" not in r.stdout
 
 
 @pytest.mark.parametrize("target", [
     "-m repro_torch.launch.serve", "-m repro_torch.launch.serve_sharded",
-    "-m repro_torch.api.smoke", "-m repro_torch.net.server",
+    "-m repro_torch.api.smoke", "-m repro_torch.net.server", "-m repro_torch.launch.train",
     "examples/quickstart_torch.py", "examples/delta_sweep_torch.py",
     "examples/e3sm_insitu_torch.py", "examples/serve_demo_torch.py",
+    "examples/lm_train_torch.py",
 ])
 def test_help_touches_no_cuda_state_and_no_process_group(target):
     # RANK/WORLD_SIZE set as under torchrun: --help must still not
@@ -240,8 +273,10 @@ def test_help_touches_no_cuda_state_and_no_process_group(target):
       "--requests", "3", "--batch", "64"], "replicated/serial"),
     (["examples/serve_demo_torch.py", "--sharded", "--n", "600", "--grid", "3", "--iters",
       "20", "--requests", "3", "--batch", "64"], "sharded/pipelined"),
+    (["examples/lm_train_torch.py", "--steps", "20", "--batch", "2", "--seq", "32"],
+     "step    20  loss"),
 ], ids=["quickstart", "delta_sweep", "delta_sweep-ppermute", "e3sm_insitu", "serve_demo",
-        "serve_demo-sharded"])
+        "serve_demo-sharded", "lm_train"])
 def test_example_twin_runs_on_the_cpu(argv, needle):
     r = _run([*argv, "--device", "cpu"], timeout=180)
     assert r.returncode == 0, r.stderr[-3000:]

@@ -57,8 +57,9 @@ def test_no_jax_or_repro_import_statement(path):
 
 def test_the_four_example_twins_are_checked():
     names = [os.path.basename(p) for p in EXAMPLE_TWINS]
-    assert names == ["delta_sweep_torch.py", "e3sm_insitu_torch.py", "quickstart_torch.py",
-                     "serve_demo_torch.py"]
+    # the four GP twins and the LM substrate's lm_train_torch.py
+    assert names == ["delta_sweep_torch.py", "e3sm_insitu_torch.py", "lm_train_torch.py",
+                     "quickstart_torch.py", "serve_demo_torch.py"]
 
 
 def test_forbidden_rule_allows_the_port_itself():
