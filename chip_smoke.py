@@ -110,8 +110,12 @@ Phases, each printed as it runs; any failure exits non-zero:
               exit 0 with no finding, 1 kernel launch a request on every
               "pallas"/"fused" lane, 4 shifts and 1 all-gather a mesh
               request, per-rank peak CUDA memory at P = 4, 9, 16 within the
-              mesh's device-exponent budget; prints the host copies a
-              request and the f64 ops the ref lanes run on the card.
+              mesh's device-exponent budget, and api.Server(group=) at
+              m 128, built as the torchrun CLI builds it from an artifact
+              (serve_sharded.build_server), answering every query with
+              cache bytes total / P a rank and its resident CUDA bytes
+              flat in P (the same budget); prints the host copies a request
+              and the f64 ops the ref lanes run on the card.
  12. lm       the dense LM substrate at full width: qwen3-0.6b (28 layers,
               d_model 1,024, GQA 16/8, vocab 152,064 padded) initialised on
               the card from a torch.Generator seeded by --seed (596,180,992
@@ -131,6 +135,26 @@ Phases, each printed as it runs; any failure exits non-zero:
               repro_torch.launch.train --arch and examples/lm_train_torch.py
               --full as subprocesses at full width. The LM path runs no
               kernel of this repo (the JAX package's runs no Pallas kernel).
+ 13. moe-mla  MoE and MLA at the published width, random from --seed, the
+              depth cut by dataclasses.replace(cfg, num_layers=n):
+              deepseek-moe-16b at 4 of 28 layers (2,267,039,744
+              parameters), qwen3-moe-30b-a3b served at 4 of 48
+              (3,115,338,752) and trained at 2 (1,869,097,472),
+              minicpm3-4b served at its full 62 (4,262,025,728) and
+              trained at 12 (1,128,278,528). Each: prefill(128) + 8
+              decode steps against the uncached forward, batch 4, in fp32
+              (<= 2e-4 x max(1, max|logits|)) and bf16 (<= 2 x the bf16
+              forward's gap to fp32), MoE at capacity E/K; the prefill's
+              dropped share at the published capacity 1.25;
+              launch.serve.generate (4 x 128, 16 tokens): prefill and
+              decode tok/s, the decode step's host share, peak memory;
+              8 AdamW steps on one 8 x 256 batch falling (aux > 0 with
+              MoE; the same MoE step twice compared), 5 timed steps on
+              CUDA events, tok/s, peak memory. Then one deepseek-width MoE
+              layer on 2 spawned gloo ranks, 32 experts each, against the
+              local path (<= 2e-5 x max(1, max|out|), aux equal, 1
+              all-reduce a forward), and launch.serve --arch and
+              launch.train --arch of the three at --smoke, all at once.
 
 Tolerances (``repro_torch.kernels.ref.tolerance_ratio``): float32 rounding
 scaled by the magnitude of the terms each output sums — prediction: per
@@ -2106,6 +2130,19 @@ def analysis_phase(card: str, report: dict) -> None:
     budget = costs["budgets"]["mesh-blend"]["max_device_exponent"]
     exponent = mesh_cost["cuda_peak_exponent"]
     check(exponent <= budget, f"analysis: per-rank peak CUDA memory exponent {exponent} > {budget}")
+    # api.Server(group=) itself on every rank at P = 4, 9, 16 and m 128,
+    # built by the torchrun CLI's front from an artifact: what a rank
+    # keeps resident after the load, the build and one request
+    server = costs["server_memory"]
+    check(sorted(server, key=int) == ["4", "9", "16"], f"analysis: server probe {list(server)}")
+    for p_, ranks in server.items():
+        for r, res in enumerate(ranks):
+            total, per_rank = res["cache_bytes"]
+            check(per_rank * int(p_) == total and res["answers"] == 8 * int(p_),
+                  f"analysis: P={p_} rank {r} keeps {res}")
+    server_exp = costs["server_resident_exponent"]
+    check(server_exp is not None and server_exp <= budget,
+          f"analysis: Server(group=) resident CUDA memory exponent {server_exp} > {budget}")
     # the shape-derived costs on the card against the committed CPU baseline
     with open(os.path.join(SRC, "repro_torch", "analysis", "analysis_costs.json")) as f:
         base = json.load(f)["programs"]
@@ -2122,6 +2159,11 @@ def analysis_phase(card: str, report: dict) -> None:
         "f64_ops_on_device": f64,
         "mesh_cuda_peak_bytes": peaks,
         "mesh_cuda_peak_exponent": exponent,
+        "server_memory": {p_: {k: [r[k] for r in ranks] for k in (
+            "cuda_peak_bytes", "cuda_resident_bytes", "cuda_request_peak_bytes")}
+            for p_, ranks in server.items()},
+        "server_resident_exponent": server_exp,
+        "server_cache_bytes": {p_: ranks[0]["cache_bytes"] for p_, ranks in server.items()},
         "mesh_device_exponent_budget": budget,
         "contracts_checked": rep["passes"]["contracts"]["targets_checked"],
         "costs_vs_cpu_baseline": [min(ratios), max(ratios)],
@@ -2141,6 +2183,16 @@ def analysis_phase(card: str, report: dict) -> None:
           + ", ".join(f"P={mesh_cost['axes']['devices'][lab]} {min(v)}-{max(v)} B"
                       for lab, v in peaks.items())
           + f"; fitted exponent vs P {exponent} (budget {budget})")
+    print(f"[analysis] [{card}] api.Server(group=) at m {costs['server_m']} on every rank, "
+          "built from an artifact by the torchrun CLI's front, after the load, the build and "
+          "one request (min-max over ranks): "
+          + "; ".join(
+              f"P={p_}: peak {min(v['cuda_peak_bytes'])}-{max(v['cuda_peak_bytes'])} B, resident "
+              f"{min(v['cuda_resident_bytes'])}-{max(v['cuda_resident_bytes'])} B, the request's "
+              f"peak {min(v['cuda_request_peak_bytes'])}-{max(v['cuda_request_peak_bytes'])} B, "
+              f"cache bytes (total, a rank) {rec['server_cache_bytes'][p_]}"
+              for p_, v in rec["server_memory"].items())
+          + f"; resident exponent vs P {server_exp} (budget {budget})")
     print(f"[analysis] [{card}] the shape-derived costs of the ref programs on the card over "
           f"the committed CPU baseline: ratios {min(ratios):.4f}-{max(ratios):.4f} at "
           f"{len(ratios)} (program, point, metric)")
@@ -2422,6 +2474,407 @@ def lm_phase(torch, dev, card: str, report: dict, seed: int) -> None:
     rec["phase_s"] = time.perf_counter() - t_phase
     report["lm"] = rec
     print(f"[lm] [{card}] phase 12: {rec['phase_s']:.3f} s")
+
+
+# --------------------------------------------------------------------------
+# 13. MoE and MLA at the published width: deepseek-moe-16b, qwen3-moe-30b-a3b
+#     and minicpm3-4b, depth cut to fit the card
+# --------------------------------------------------------------------------
+
+# arch, serve depth and its parameter count, train depth and its count
+# (jax.eval_shape(transformer.init_model_params) over repro.configs.get)
+P13_MODELS = (
+    ("deepseek-moe-16b", 4, 2_267_039_744, 4, 2_267_039_744),
+    ("qwen3-moe-30b-a3b", 4, 3_115_338_752, 2, 1_869_097_472),
+    ("minicpm3-4b", 62, 4_262_025_728, 12, 1_128_278_528),
+)
+P13_BATCH, P13_PROMPT, P13_GEN = 4, 128, 16
+P13_TRAIN_BATCH, P13_TRAIN_SEQ, P13_TRAIN_LR = 8, 256, 1e-3
+P13_OVERFIT_STEPS, P13_TIMED_STEPS = 8, 5
+P13_SPMD_RANKS = 2
+# the expert-parallel layer against the local one, both fp32 on cuBLAS
+# with other batch shapes: JAX's tests/test_moe_spmd.py bound (2e-5) scaled
+# by the output's magnitude
+P13_SPMD_RTOL = 2e-5
+P13_JOIN_S = 240
+P13_CLI_TIMEOUT_S = 300
+
+
+def raised_capacity(cfg):
+    """``cfg`` with capacity_factor E / K (Cg >= Tg: no group drops an
+    assignment), or ``cfg`` without MoE."""
+    if cfg.moe is None:
+        return cfg
+    m = cfg.moe
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(m, capacity_factor=m.num_experts / m.top_k))
+
+
+def moe_spmd_config():
+    """One deepseek-moe-16b MoE layer at its published width (E 64, top-6,
+    d_expert 1,408, 2 shared, d_model 2,048), fp32, capacity raised."""
+    from repro_torch.configs import get
+
+    return raised_capacity(dataclasses.replace(get("deepseek-moe-16b"), dtype="float32"))
+
+
+def moe_spmd_rank(rank: int, world: int, store: str, out_dir: str, seed: int,
+                  device: str) -> None:
+    """One rank of phase 13's expert-parallel check (a spawned process): the
+    same layer and tokens on every rank from one seed, the local path and
+    the expert-parallel one over the gloo group, on the card."""
+    import pickle
+    import traceback
+
+    import torch
+
+    torch.set_num_threads(1)
+    try:
+        import torch.distributed as dist
+
+        from repro_torch.models import moe
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                                world_size=world)
+        try:
+            dev = torch.device(device)
+            cfg = moe_spmd_config()
+            gen = torch.Generator(dev).manual_seed(seed)
+            p = moe.init_moe_params(gen, cfg)
+            x = torch.randn((P13_BATCH, P13_PROMPT, cfg.d_model), generator=gen, device=dev)
+            with torch.no_grad():
+                want, waux = moe._moe_forward_local(p, cfg, x)
+                moe.reset_collectives()
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                got, aux = moe.moe_forward(p, cfg, x, group=dist.group.WORLD)
+                torch.cuda.synchronize(dev)
+                seconds = time.perf_counter() - t0
+            out = {"max_abs_err": float((got - want).abs().max()),
+                   "scale": float(want.abs().max()), "aux": float(aux), "local_aux": float(waux),
+                   "collectives": dict(moe.COLLECTIVES), "seconds": seconds}
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # noqa: BLE001 — a rank reports its failure to the parent
+        out = {"error": traceback.format_exc()}
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def moe_spmd_check(dev, card: str, seed: int, rank_fn=None) -> dict:
+    """2 spawned gloo ranks on the card, 32 experts each: the layer's
+    output within P13_SPMD_RTOL of the local path, aux equal, 1 all-reduce
+    a forward."""
+    import multiprocessing as mp
+    import pickle
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=rank_fn or moe_spmd_rank,
+                             args=(r, P13_SPMD_RANKS, os.path.join(tmp, "store"), tmp, seed,
+                                   str(dev)))
+                 for r in range(P13_SPMD_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(P13_JOIN_S)
+            alive = [r for r, p in enumerate(procs) if p.is_alive()]
+            check(not alive, f"moe spmd: ranks {alive} still running after {P13_JOIN_S} s")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        ranks = []
+        for r in range(P13_SPMD_RANKS):
+            path = os.path.join(tmp, f"rank{r}.pkl")
+            check(os.path.exists(path), f"moe spmd: rank {r} wrote nothing "
+                                        f"(exit {procs[r].exitcode})")
+            with open(path, "rb") as f:
+                ranks.append(pickle.load(f))
+            check("error" not in ranks[r], f"moe spmd: rank {r} failed:\n{ranks[r].get('error')}")
+    spawn_s = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        bound = P13_SPMD_RTOL * max(1.0, res["scale"])
+        check(res["max_abs_err"] <= bound,
+              f"moe spmd: rank {r} |d out| {res['max_abs_err']} > {bound}")
+        check(res["aux"] == res["local_aux"], f"moe spmd: rank {r} aux {res['aux']} != "
+                                              f"{res['local_aux']}")
+        check(res["collectives"] == {"forward_all_reduce": 1, "backward_all_reduce": 0},
+              f"moe spmd: rank {r} collectives {res['collectives']}")
+    rec = {"ranks": P13_SPMD_RANKS, "tokens": P13_BATCH * P13_PROMPT, "spawn_s": spawn_s,
+           "max_abs_err": max(r["max_abs_err"] for r in ranks),
+           "out_scale": max(r["scale"] for r in ranks),
+           "forward_s": [r["seconds"] for r in ranks],
+           "all_reduces_per_forward": ranks[0]["collectives"]["forward_all_reduce"]}
+    print(f"[moe-mla] [{card}] expert-parallel deepseek-moe-16b layer (E 64, 32 experts a rank) "
+          f"on {P13_SPMD_RANKS} gloo ranks, {rec['tokens']} tokens, fp32: max|d out| vs the "
+          f"local path {rec['max_abs_err']:.3e} (bound {P13_SPMD_RTOL} x max(1, "
+          f"{rec['out_scale']:.3f})), aux equal, 1 all-reduce a forward; forward "
+          + ", ".join(f"{s * 1e3:.3f}" for s in rec["forward_s"]) + " ms a rank (gloo through "
+          f"host memory); {spawn_s:.3f} s for the spawn")
+    return rec
+
+
+def _p13_serve(torch, dev, card: str, cfg, params, seed: int, rec: dict) -> None:
+    """The cache gates, the dropped share, serve times and the host share
+    of a decode step, for one model."""
+    from repro_torch.launch.serve import generate, lm_prompts
+    from repro_torch.models import moe
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+
+    name = cfg.name
+    # the cache against the uncached forward, fp32 then bf16, at a capacity
+    # no group can overflow (a capacity drop differs by design between a
+    # T-token prefill and a 1-token decode step)
+    gate_cfg = raised_capacity(cfg)
+    tokens = torch.from_numpy(lm_prompts(cfg, P13_BATCH, P13_PROMPT + LM_CHECKED, seed)).to(dev)
+    gap32, full32 = _lm_cache_gap(torch, params, dataclasses.replace(gate_cfg, dtype="float32"),
+                                  tokens)
+    gap16, full16 = _lm_cache_gap(torch, params, gate_cfg, tokens)
+    ok = full32 > -1e29
+    noise = float((full16 - full32)[ok].abs().max())
+    scale = float(full32[ok].abs().max())
+    del full32, full16
+    bound32 = LM_FP32_ATOL * max(1.0, scale)
+    rec.update(cache_gap_fp32=gap32, cache_gap_bf16=gap16, bf16_vs_fp32_forward=noise,
+               logits_scale=scale, cache_capacity_factor=(gate_cfg.moe.capacity_factor
+                                                           if cfg.moe else None))
+    print(f"[moe-mla] [{card}] {name}: prefill({P13_PROMPT}) + {LM_CHECKED} decode steps vs the "
+          f"uncached forward, batch {P13_BATCH}"
+          + (f", capacity raised to E/K = {gate_cfg.moe.capacity_factor:.4f}" if cfg.moe else "")
+          + f": fp32 max|d logits| {gap32:.3e} (bound {LM_FP32_ATOL} x max(1, {scale:.3f})); "
+          f"bf16 {gap16:.3e} (bound {LM_BF16_FACTOR} x {noise:.3e}, the bf16 forward's gap to "
+          "the fp32 one)")
+    check(np.isfinite(gap32) and gap32 <= bound32, f"{name}: fp32 cache gap {gap32} > {bound32}")
+    check(np.isfinite(gap16) and gap16 <= LM_BF16_FACTOR * noise,
+          f"{name}: bf16 cache gap {gap16} > {LM_BF16_FACTOR} x {noise}")
+    prompts = tokens[:, :P13_PROMPT].contiguous()
+    if cfg.moe is not None:
+        # the prefill's dropped share at the published capacity factor
+        with torch.no_grad(), moe.routing_log() as log:
+            make_prefill_step(cfg, cache_len=P13_PROMPT)(params, prompts)
+        kept = float(torch.stack([k for k, _ in log]).sum())
+        total = sum(n for _, n in log)
+        rec["prefill_dropped_share"] = 1.0 - kept / total
+        print(f"[moe-mla] [{card}] {name}: prefill {P13_BATCH}x{P13_PROMPT} at capacity factor "
+              f"{cfg.moe.capacity_factor}: {total - kept:.0f} of {total} (token, expert) "
+              f"assignments dropped over {len(log)} MoE layers (share "
+              f"{rec['prefill_dropped_share']:.4f})")
+    first = generate(params, cfg, prompts, P13_GEN, temperature=0.0)
+    torch.cuda.reset_peak_memory_stats()
+    out = generate(params, cfg, prompts, P13_GEN, temperature=0.0)
+    rec["serve_peak_bytes"] = torch.cuda.max_memory_allocated()
+    toks = out["tokens"]
+    check(tuple(toks.shape) == (P13_BATCH, P13_GEN) and bool((toks >= 0).all())
+          and bool((toks < cfg.vocab_size).all()), f"{name}: generated {tuple(toks.shape)}")
+    pre_s, dec_s = out["prefill_s"], out["decode_s"]
+    rec.update(prefill_ms=1e3 * pre_s, prefill_tok_s=P13_BATCH * P13_PROMPT / pre_s,
+               decode_ms_per_step=1e3 * dec_s / (P13_GEN - 1),
+               decode_tok_s=P13_BATCH * (P13_GEN - 1) / dec_s,
+               greedy_repeat_equal=bool(torch.equal(first["tokens"], toks)))
+    _, cache = make_prefill_step(cfg, cache_len=P13_PROMPT + P13_GEN)(params, prompts)
+    decode = make_decode_step(cfg)
+    tok = toks[:, :1]
+    decode(params, cache, P13_PROMPT, tok)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(LM_PROFILED):
+            decode(params, cache, P13_PROMPT + 1 + i, tok)
+        torch.cuda.synchronize()
+        window_us = 1e6 * (time.perf_counter() - t0)
+    busy_us, _ = device_busy(torch, prof, LM_PROFILED)
+    del cache
+    rec["decode_host_share"] = 1.0 - busy_us / window_us if busy_us > 0 else None
+    share = ("not measured (torch.profiler saw no device activity)"
+             if rec["decode_host_share"] is None else f"{rec['decode_host_share']:.4f}")
+    print(f"[moe-mla] [{card}] {name}: serve (launch.serve.generate, bf16, greedy, second run) "
+          f"prefill {P13_BATCH}x{P13_PROMPT} in {rec['prefill_ms']:.3f} ms "
+          f"({rec['prefill_tok_s']:.1f} tok/s); decode {rec['decode_ms_per_step']:.3f} ms a step "
+          f"x {P13_GEN - 1} ({rec['decode_tok_s']:.1f} tok/s); decode host share {share} "
+          f"(torch.profiler, {LM_PROFILED} steps); peak CUDA memory {rec['serve_peak_bytes']:,} B")
+
+
+def _p13_train(torch, dev, card: str, cfg, holder: list, seed: int, rec: dict) -> None:
+    """8 AdamW steps on one batch (the loss falls), then P13_TIMED_STEPS
+    timed on CUDA events, remat on. ``holder`` hands over the parameters
+    (a list of one tree, emptied here, so that no caller keeps them)."""
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.launch.train import device_batch
+    from repro_torch.optim import adam_init, tree_leaves
+    from repro_torch.runtime.steps import TrainState, make_train_step
+
+    name = cfg.name
+    params = holder.pop()
+    state = TrainState(params, adam_init(params), 0)
+    del params
+    step = make_train_step(cfg, learning_rate=P13_TRAIN_LR)
+    toks_np, tg_np = next(synthetic_token_batches(cfg.vocab_size, P13_TRAIN_BATCH,
+                                                  P13_TRAIN_SEQ, seed=seed))
+    batch = device_batch(toks_np, tg_np, dev)
+    losses, auxes = [], []
+    for _ in range(P13_OVERFIT_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+        auxes.append(m["aux"])
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    rec["overfit_losses"] = losses
+    rec["overfit_aux"] = [float(v) for v in torch.stack(auxes).cpu()]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{name}: the loss on one repeated batch did not fall: {losses}")
+    if cfg.moe is not None:
+        check(all(a > 0 for a in rec["overfit_aux"]), f"{name}: aux {rec['overfit_aux']}")
+        # the same step twice from the same state: per-leaf int64 sums of the
+        # new parameters' float32 bit patterns (a second state would not
+        # fit beside the first at this size)
+        prints = []
+        for _ in range(2):
+            nxt, _ = step(state, batch)
+            prints.append(torch.stack([leaf.view(torch.int32).sum(dtype=torch.int64)
+                                       for leaf in tree_leaves(nxt.params)]).cpu())
+            del nxt
+        rec["train_step_repeat_bitwise"] = bool(torch.equal(*prints))
+    data = synthetic_token_batches(cfg.vocab_size, P13_TRAIN_BATCH, P13_TRAIN_SEQ, seed=seed,
+                                   num_batches=P13_TIMED_STEPS, start_row=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, tl = [], []
+    for toks_np, tg_np in data:
+        b = device_batch(toks_np, tg_np, dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        events.append((start, end))
+        tl.append(m["loss"])
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in events]
+    tl = [float(v) for v in torch.stack(tl).cpu()]
+    check(all(np.isfinite(tl)), f"{name}: a non-finite loss in {tl}")
+    p50 = float(np.percentile(ms, 50))
+    rec.update(train_ms=_pct(ms), train_tok_s=P13_TRAIN_BATCH * P13_TRAIN_SEQ / (p50 / 1e3),
+               train_peak_bytes=torch.cuda.max_memory_allocated(), train_losses=tl)
+    del state, batch
+    print(f"[moe-mla] [{card}] {name}: train (AdamW lr {P13_TRAIN_LR}, remat, bf16, "
+          f"{P13_TRAIN_BATCH}x{P13_TRAIN_SEQ}): {P13_OVERFIT_STEPS} steps on one batch, losses "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + (f" (aux {rec['overfit_aux'][0]:.4f} .. {rec['overfit_aux'][-1]:.4f}; the same step "
+             "twice, the bit patterns' per-leaf sums equal: "
+             f"{rec['train_step_repeat_bitwise']})" if cfg.moe else "")
+          + f"; {P13_TIMED_STEPS} timed steps p50 {p50:.3f} ms (CUDA events), "
+          f"{rec['train_tok_s']:.1f} tok/s, peak CUDA memory {rec['train_peak_bytes']:,} B")
+
+
+def p13_cli_commands() -> list:
+    """(label, argv after the interpreter): launch.serve --arch and
+    launch.train --arch at --smoke for each of phase 13's architectures."""
+    cmds = []
+    for arch, *_ in P13_MODELS:
+        cmds.append((f"serve --arch {arch} --smoke",
+                     ["-m", "repro_torch.launch.serve", "--arch", arch, "--smoke", "--gen", "8",
+                      "--temperature", "0"]))
+        cmds.append((f"train --arch {arch} --smoke",
+                     ["-m", "repro_torch.launch.train", "--arch", arch, "--smoke", "--steps", "4",
+                      "--log-every", "2"]))
+    return cmds
+
+
+def moe_mla_phase(torch, dev, card: str, report: dict, seed: int) -> None:
+    """Phase 13: deepseek-moe-16b (depth 4), qwen3-moe-30b-a3b (serve depth
+    4, train depth 2) and minicpm3-4b (serve 62, the full depth; train 12)
+    at their published widths, random from ``seed`` on the card, each cut
+    by ``dataclasses.replace(cfg, num_layers=n)``. Gates: the parameter
+    counts; prefill + 8 decode steps against the uncached forward in fp32
+    (LM_FP32_ATOL x max(1, max|logits|)) and bf16 (LM_BF16_FACTOR x the
+    bf16 forward's gap to fp32), MoE at capacity E/K; 8 AdamW steps on one
+    batch falling (aux > 0 with MoE); the expert-parallel MoE layer on 2
+    gloo ranks against the local path; the LM CLIs at --smoke for the three
+    architectures. Prints the prefill's dropped share at the published
+    capacity, prefill and decode tok/s, the decode step's host share,
+    train ms p50 on CUDA events, tok/s and peak CUDA memory."""
+    from repro_torch.configs import get
+    from repro_torch.models.transformer import init_model_params
+    from repro_torch.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    out: dict = {"models": {}}
+
+    def build(full, n: int, want: int, what: str, rec: dict):
+        cfg = dataclasses.replace(full, num_layers=n)
+        t0 = time.perf_counter()
+        params = init_model_params(torch.Generator(dev).manual_seed(seed), cfg)
+        torch.cuda.synchronize()
+        got = sum(a.numel() for a in tree_leaves(params))
+        rec["train_parameters" if what == "train" else "serve_parameters"] = got
+        check(got == want, f"{full.name}: {got} parameters at depth {n}, not {want}")
+        cut = "" if n == full.num_layers else \
+            f", cut from {full.num_layers} layers (dataclasses.replace(cfg, num_layers={n}))"
+        print(f"[moe-mla] [{card}] {full.name} at depth {n}{cut}: {got:,} parameters "
+              f"initialised on the card in {time.perf_counter() - t0:.3f} s (seed {seed}; "
+              f"{what})")
+        return cfg, params
+
+    for arch, serve_n, serve_params, train_n, train_params in P13_MODELS:
+        full = get(arch)
+        rec: dict = {"published_layers": full.num_layers, "serve_layers": serve_n,
+                     "train_layers": train_n, "dtype": full.dtype}
+        cfg, params = build(full, serve_n, serve_params, "serve and train" if
+                            train_n == serve_n else "serve", rec)
+        if train_n == serve_n:
+            rec["train_parameters"] = rec["serve_parameters"]
+        _p13_serve(torch, dev, card, cfg, params, seed, rec)
+        if train_n != serve_n:
+            del params
+            torch.cuda.empty_cache()
+            cfg, params = build(full, train_n, train_params, "train", rec)
+        holder = [params]
+        del params  # the training state takes them over: AdamW replaces them step by step
+        _p13_train(torch, dev, card, cfg, holder, seed, rec)
+        torch.cuda.empty_cache()
+        out["models"][arch] = rec
+    out["moe_spmd"] = moe_spmd_check(dev, card, seed)
+
+    # the LM CLIs of the three architectures at --smoke, all at once
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE")}
+    env["PYTHONPATH"] = SRC
+    cmds = p13_cli_commands()
+    t0 = time.perf_counter()
+    procs = [(label, subprocess.Popen([sys.executable, *argv], cwd=REPO, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             for label, argv in cmds]
+    out["clis"] = {}
+    try:
+        for label, proc in procs:
+            try:
+                so, se = proc.communicate(timeout=max(1.0, t0 + P13_CLI_TIMEOUT_S
+                                                      - time.perf_counter()))
+            except subprocess.TimeoutExpired as e:
+                raise SmokeFailure(f"{label}: no exit within {P13_CLI_TIMEOUT_S} s") from e
+            check(proc.returncode == 0, f"{label} exited {proc.returncode}:\n{se[-3000:]}")
+            if label.startswith("serve"):
+                check(_LM_SERVE.search(so) is not None, f"{label}: no prefill/decode report")
+            else:
+                losses = [float(v) for v in re.findall(r"loss ([0-9.]+)", so)]
+                check(len(losses) == 2 and all(np.isfinite(losses)) and "done." in so,
+                      f"{label}: losses {losses}")
+            out["clis"][label] = "exit 0"
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(10)
+    out["clis_s"] = time.perf_counter() - t0
+    print(f"[moe-mla] [{card}] the LM CLIs at --smoke, {len(cmds)} at once: "
+          + ", ".join(out["clis"]) + f" exit 0 in {out['clis_s']:.3f} s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["moe_mla"] = out
+    print(f"[moe-mla] [{card}] phase 13: {out['phase_s']:.3f} s")
 
 
 def run(report: dict, seed: int = 0) -> None:
@@ -2749,6 +3202,8 @@ def run(report: dict, seed: int = 0) -> None:
     analysis_phase(card, report)
     # -- 12. the dense LM substrate at full width
     lm_phase(torch, dev, card, report, seed)
+    # -- 13. MoE and MLA at the published width
+    moe_mla_phase(torch, dev, card, report, seed)
     report["times"] = [
         {"name": n, "shape": list(s), "label": lab, "ms": k, "plain_ms": p,
          "bound_ms": b, "bound_by": by, "floor_ms": report["floor_ms"]}

@@ -1,34 +1,31 @@
-"""Serve the GP surface with batched requests on the PyTorch port.
+"""Serve a small model with batched requests on the PyTorch port.
 
-The twin of the GP half of ``examples/serve_demo.py``: fit the
-partitioned surface, SAVE the artifact, then serve query batches from the
-loaded artifact (``Server.from_artifact``; no retraining on the serving
-path). ``--sharded`` serves the halo program through the overlapped
-pipeline (one slots-kernel launch a request on CUDA).
+The twin of ``examples/serve_demo.py``.
 
-  PYTHONPATH=src python examples/serve_demo_torch.py [--sharded] [--device cpu]
+LM mode (default): prefill + decode loop on a smoke-sized architecture
+(a subprocess over ``repro_torch.launch.serve --arch A --smoke``; an
+architecture the port does not have yet exits naming its slice).
+
+GP mode (--gp): fit the partitioned surface, SAVE the artifact, then serve
+query batches from the loaded artifact (``Server.from_artifact``; no
+retraining on the serving path). ``--sharded`` serves the halo program
+through the overlapped pipeline (one slots-kernel launch a request on
+CUDA).
+
+  PYTHONPATH=src python examples/serve_demo_torch.py [--arch deepseek-moe-16b] [--device cpu]
+  PYTHONPATH=src python examples/serve_demo_torch.py --gp [--sharded] [--device cpu]
 """
 import argparse
+import subprocess
+import sys
 import tempfile
 
 import numpy as np
 
-from repro_torch import api
-from repro_torch.data.spatial import e3sm_like_field
 
-
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--sharded", action="store_true",
-                    help="the halo program + overlapped pipeline")
-    ap.add_argument("--n", type=int, default=4000, help="observations")
-    ap.add_argument("--grid", type=int, default=4, help="partition grid side")
-    ap.add_argument("--iters", type=int, default=150)
-    ap.add_argument("--requests", type=int, default=12)
-    ap.add_argument("--batch", type=int, default=512)
-    ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
-                    help="cuda when absent (raises on a machine without a GPU)")
-    args = ap.parse_args()
+def run_gp(args) -> None:
+    from repro_torch import api
+    from repro_torch.data.spatial import e3sm_like_field
 
     ds = e3sm_like_field(n=args.n, seed=0)
     fitted = api.fit(api.FitConfig(grid=args.grid, m=6, train_iters=args.iters), ds,
@@ -53,6 +50,44 @@ def main() -> None:
     print(f"latency/request ms: p50={pct['p50_ms']:.2f} "
           f"p95={pct['p95_ms']:.2f} p99={pct['p99_ms']:.2f}")
     print(f"throughput: {report['points_per_s']:,.0f} points/s")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="qwen3-0.6b", help="LM mode: the architecture id")
+    ap.add_argument("--prompt-len", type=int, default=64, help="LM mode: prompt tokens")
+    ap.add_argument("--gen", type=int, default=32, help="LM mode: generated tokens")
+    ap.add_argument("--gp", action="store_true",
+                    help="serve the blended PSVGP surface instead of an LM "
+                         "(fit -> save artifact -> Server.from_artifact)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="GP mode: the halo program + overlapped pipeline")
+    ap.add_argument("--n", type=int, default=4000, help="GP mode: observations")
+    ap.add_argument("--grid", type=int, default=4, help="GP mode: partition grid side")
+    ap.add_argument("--iters", type=int, default=150, help="GP mode: training steps")
+    ap.add_argument("--requests", type=int, default=12, help="GP mode: requests")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="sequences (LM mode, default 4) or points a request (GP mode, "
+                         "default 512)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="cuda when absent (raises on a machine without a GPU)")
+    args = ap.parse_args()
+    if args.gp:
+        args.batch = 512 if args.batch is None else args.batch
+        run_gp(args)
+        return
+    if args.sharded:
+        ap.error("--sharded only applies to the GP mode (add --gp)")
+    cmd = [
+        sys.executable, "-m", "repro_torch.launch.serve",
+        "--arch", args.arch, "--smoke",
+        "--batch", str(4 if args.batch is None else args.batch),
+        "--prompt-len", str(args.prompt_len),
+        "--gen", str(args.gen),
+    ]
+    if args.device is not None:
+        cmd += ["--device", args.device]
+    sys.exit(subprocess.call(cmd))
 
 
 if __name__ == "__main__":

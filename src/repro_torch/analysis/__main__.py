@@ -72,7 +72,7 @@ def _mesh_jobs(passes: tuple, args) -> list:
                                q_max=args.q_max, n_queries=hlo.DEFAULT_N_QUERIES)
                  for lane in inv.LANES if lane.program == "mesh-blend"]
     if "costs" in passes:
-        jobs += costs.mesh_jobs()
+        jobs += costs.mesh_jobs() + costs.server_jobs()
     return jobs
 
 

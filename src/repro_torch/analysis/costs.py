@@ -38,6 +38,18 @@ On the card the pass also records each rank's
 exponent to ``mesh-blend``'s device budget; those bytes are reported, not
 gated against the CPU baseline (the allocator rounds, the CPU does not).
 
+The same spawn serves one request through ``api.Server(fitted,
+ServeConfig(mode="sharded"), group=...)`` itself on every rank
+(:func:`drive_server`, the ``mesh-server`` jobs) at P = 4, 9 and 16 and
+m = :data:`SERVER_M` (a cell's W and U take 131 KB), built as the
+sharded serving CLI builds it under ``torchrun``: from an artifact saved
+with its cache, through ``serve_sharded.build_server``. On the card it
+records each rank's peak CUDA memory over the build and the request, the
+memory still allocated after it (what the rank keeps resident) and the
+peak over the request alone, and holds the resident bytes to the
+``mesh-blend`` device exponent (COST-MEM-SCALING); on the CPU only the
+server's ``cache_bytes`` and its answers are recorded.
+
 Kernel-lane caveat, stated rather than silently capped: a kernel dispatch
 is one opaque launch (a ctypes call on the card), so its work is not in
 the trace; the kernel lanes are recorded as skipped with this reason, and
@@ -50,6 +62,7 @@ without torch.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -64,6 +77,8 @@ SHARDED_Q_POINTS = (32, 64, 128)  # at grid side ANCHOR_GRID
 ANCHOR_GRID = 4
 ANCHOR_Q = 64
 REPLICATED_N_POINTS = (128, 256, 512)
+SERVER_M = 128
+SERVER_Q_PER_CELL = 8
 
 DEFAULT_BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "analysis_costs.json")
@@ -112,6 +127,132 @@ def scale_jobs(*, m: int = M) -> dict:
 def mesh_jobs(*, m: int = M) -> list:
     """The scale points the mesh program needs (for the CLI's one spawn)."""
     return [job for _, _, job in scale_jobs(m=m)["mesh-blend/ref"]]
+
+
+def server_jobs(*, m: int = SERVER_M) -> list:
+    """The ``mesh-server`` probe points: (program, backend, side, q_max,
+    n_queries, m) at P = 4, 9, 16, every cell holding 8 queries."""
+    return [("mesh-server", "auto", side, 64, side * side * SERVER_Q_PER_CELL, m)
+            for side in SHARDED_GRID_SIDES]
+
+
+def server_probe_arrays(num_partitions: int, m: int, *, d: int = 2, seed: int = 0) -> dict:
+    """Random, well-conditioned ``params/*`` arrays of a P-cell model (the
+    same on every rank for one seed): inducing points spread over the
+    unit square at lengthscale 0.02, small variational factors."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    P = num_partitions
+    return {
+        "params/m_star": rng.normal(0.0, 1.0, (P, m)).astype(np.float32),
+        "params/s_tril": np.tril(rng.normal(0.0, 0.1, (P, m, m))).astype(np.float32),
+        "params/z": rng.uniform(0.0, 1.0, (P, m, d)).astype(np.float32),
+        "params/cov/log_lengthscale": np.full((P, d), np.log(0.02), np.float32),
+        "params/cov/log_variance": np.zeros(P, np.float32),
+        "params/log_beta": np.full(P, 2.0, np.float32),
+    }
+
+
+def drive_server(*, grid_side: int, m: int, q_max: int, n_queries: int, device: str,
+                 group) -> dict:
+    """Build the sharded serving CLI's ``Server(..., group=group)`` on this
+    rank as a ``torchrun`` rank does (``serve_sharded.build_server`` over
+    an artifact of ``grid_side**2`` random cells saved with its cache),
+    serve one request, and report what the rank keeps: ``cache_bytes``
+    and, on the card, the bytes allocated by the load, the build and the
+    request (peak, resident after it while the CLI holds its model, the
+    request's own peak), each above what was allocated before."""
+    import argparse
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch import api
+    from repro_torch.analysis import hlo
+    from repro_torch.launch import serve_sharded as ss
+
+    dev = torch.device(device)
+    grid = hlo.probe_grid(grid_side)
+    config = api.FitConfig(grid=grid_side, m=m)
+    cuda = dev.type == "cuda"
+    with tempfile.TemporaryDirectory() as artifact:
+        api.FittedPSVGP.from_numpy(
+            config, grid, server_probe_arrays(grid.num_partitions, m), device="cpu",
+        ).save(artifact)
+        gc.collect()  # an earlier job's server, freed before the baseline
+        if cuda:
+            # the library workspaces a process allocates once, at its first
+            # matmul and factorization (cuBLAS keeps 32 MiB), are not the
+            # server's: allocated here, before the baseline
+            eye = torch.eye(4, device=dev)
+            torch.linalg.cholesky_ex(eye[None].repeat(2, 1, 1))
+            torch.linalg.solve_triangular(eye, eye @ eye, upper=False)
+            del eye
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        args = argparse.Namespace(gp_artifact=artifact, device=device)
+        with contextlib.redirect_stdout(io.StringIO()):  # the CLI's "loaded artifact" line
+            _, fitted, server = ss.build_server(
+                args, api.ServeConfig(mode="sharded", q_max=q_max), group)
+    q = hlo.probe_queries(grid, n_queries)
+    server.submit(q)  # warm-up
+    if cuda:
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+    mean, _ = server.submit(q)
+    rec = {
+        "cells": grid.num_partitions,
+        "cache_bytes": list(server.cache_bytes),
+        "answers": int(len(mean)),
+        "cuda_peak_bytes": None, "cuda_resident_bytes": None, "cuda_request_peak_bytes": None,
+    }
+    if cuda:
+        torch.cuda.synchronize(dev)
+        rec["cuda_peak_bytes"] = int(peak)
+        rec["cuda_resident_bytes"] = int(torch.cuda.memory_allocated(dev) - base)
+        rec["cuda_request_peak_bytes"] = int(torch.cuda.max_memory_allocated(dev) - before)
+    del server, fitted
+    gc.collect()
+    return rec
+
+
+def measure_server(*, m: int = SERVER_M, device: str = "cpu") -> dict:
+    """{P: every rank's :func:`drive_server` record} (one spawn, shared
+    with the mesh programs' probes)."""
+    from repro_torch.analysis import meshprobe
+
+    res = meshprobe.results(server_jobs(m=m), device)
+    return {str(job[2] * job[2]): res[job] for job in server_jobs(m=m)}
+
+
+def server_resident_exponent(server: dict) -> float | None:
+    """The exponent of the largest rank's resident CUDA bytes against P
+    (None without CUDA numbers)."""
+    ps = sorted(server, key=int)
+    resident = [max(r["cuda_resident_bytes"] or 0 for r in server[p]) for p in ps]
+    if min(resident) <= 0:
+        return None
+    return round(fit_exponent([int(p) for p in ps], resident), 4)
+
+
+def check_server_memory(server: dict, budget: "inv.CostBudget") -> list:
+    """Each rank's resident CUDA bytes after ``Server(group=)`` served a
+    request, fitted against P: held to the mesh's device exponent."""
+    exp = server_resident_exponent(server)
+    if budget.max_device_exponent is None or exp is None:
+        return []
+    if exp > budget.max_device_exponent:
+        return [Finding("costs", "COST-MEM-SCALING", "program:mesh-server",
+                        f"a mesh rank's resident CUDA memory after Server(group=) scales as "
+                        f"devices^{exp:.2f}, budget is ^{budget.max_device_exponent} — a "
+                        "rank must keep only its own cell")]
+    return []
 
 
 def measure_programs(*, m: int = M, device: str = "cpu") -> dict:
@@ -398,6 +539,8 @@ def run(
         budget = inv.COST_BUDGETS[name.split("/")[0]]
         findings.extend(check_budget(name, rec, budget))
         findings.extend(check_device_memory(name, rec, budget))
+    server = measure_server(device=device)
+    findings.extend(check_server_memory(server, inv.COST_BUDGETS["mesh-blend"]))
 
     baseline = load_baseline(baseline_path)
     baseline_checked = False
@@ -415,6 +558,9 @@ def run(
 
     report = {
         "programs": programs,
+        "server_memory": server,
+        "server_resident_exponent": server_resident_exponent(server),
+        "server_m": SERVER_M,
         "lanes": lane_cost_records(programs),
         "budgets": {name: dataclasses.asdict(b) for name, b in sorted(inv.COST_BUDGETS.items())},
         "baseline_path": baseline_path,

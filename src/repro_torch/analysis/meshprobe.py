@@ -12,15 +12,18 @@ repeated runs in one process, share them.
 
 A job is ``(program, backend, grid side, q_max, n_queries, m)``, as
 ``hlo.probe_job`` makes it; its result is the list of every rank's
-``hlo.drive_program`` record, rank order. :func:`measure` also takes a
-``variant`` beside each job, the name of an injected fault for tests: the
-ranks call ``inject(variant)`` (a module-level function, so spawn can
-pickle it) as a context manager around that job.
+``hlo.drive_program`` record, rank order (``costs.drive_server``'s for
+the ``mesh-server`` jobs: ``api.Server(group=)`` itself, one request).
+:func:`measure` also takes a ``variant`` beside each job, the name of an
+injected fault for tests: the ranks call ``inject(variant)`` (a
+module-level function, so spawn can pickle it) as a context manager
+around that job.
 """
 from __future__ import annotations
 
 import contextlib
 import datetime
+import functools
 import os
 import pickle
 import shutil
@@ -43,7 +46,7 @@ def _rank_main(rank: int, world: int, store: str, jobs: list, out_dir: str, devi
     try:
         import torch.distributed as dist
 
-        from repro_torch.analysis import hlo
+        from repro_torch.analysis import costs, hlo
 
         dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                                 world_size=world,
@@ -61,9 +64,11 @@ def _rank_main(rank: int, world: int, store: str, jobs: list, out_dir: str, devi
                     continue
                 ctx = inject(variant) if variant is not None else contextlib.nullcontext()
                 with ctx:
-                    results[(job, variant)] = hlo.drive_program(
-                        program, backend, grid_side=side, m=m, q_max=q_max,
-                        n_queries=n_queries, device=device, group=groups[side * side])
+                    drive = costs.drive_server if program == "mesh-server" else \
+                        functools.partial(hlo.drive_program, program, backend)
+                    results[(job, variant)] = drive(
+                        grid_side=side, m=m, q_max=q_max, n_queries=n_queries, device=device,
+                        group=groups[side * side])
             dist.barrier()
         finally:
             dist.destroy_process_group()

@@ -189,7 +189,9 @@ class FittedPSVGP:
             return self
         static = _move(self.static, dev)._replace(cfg=_psvgp_config(self.config, dev))
         cache = None if self._cache is None else _move(self._cache, dev)
-        return FittedPSVGP(self.config, self.grid, static, _move(self.state, dev), cache)
+        out = FittedPSVGP(self.config, self.grid, static, _move(self.state, dev), cache)
+        out.train_seconds, out.refit_seconds = self.train_seconds, self.refit_seconds
+        return out
 
     def save(self, path: str) -> str:
         """Persist the serving artifact to ``path`` (a directory): the

@@ -50,7 +50,7 @@ import torch
 
 from repro_torch.api.config import ServeConfig
 from repro_torch.api.fitted import FittedPSVGP
-from repro_torch.core import routing
+from repro_torch.core import psvgp, routing
 from repro_torch.launch import serve_sharded as ss
 
 
@@ -62,7 +62,7 @@ class _ServingContext:
 
     __slots__ = (
         "fitted", "version", "route", "submit", "collect",
-        "cache_bytes", "requests", "build_seconds",
+        "cache", "cache_bytes", "requests", "build_seconds",
     )
 
     def __init__(self, fitted: FittedPSVGP, version):
@@ -71,6 +71,7 @@ class _ServingContext:
         self.route: Callable | None = None
         self.submit: Callable | None = None
         self.collect: Callable | None = None
+        self.cache = None  # the mesh rank's one cell of the cache (the mesh lane only)
         self.cache_bytes: tuple[int, int] | None = None
         self.requests = 0
         self.build_seconds: float | None = None
@@ -80,8 +81,10 @@ class Server:
     """Serve a :class:`FittedPSVGP` the way a :class:`ServeConfig` says to.
 
     Attributes:
-      fitted / config: the ACTIVE model (changes on :meth:`swap`) and the
-        session config.
+      fitted / config: the ACTIVE model (changes on :meth:`swap`), on
+        ``device``, and the session config. On the mesh lane the server
+        holds the model in host memory and ``fitted`` is a copy on
+        ``device`` made at each access.
       device: where the models and the device program live (the first
         model's device unless ``device=`` moves it; swapped-in models are
         moved here).
@@ -91,7 +94,9 @@ class Server:
       mesh: the mesh lane's ``serve_sharded.HaloMesh`` (None without a
         group).
       cache_bytes: sharded mode only — the active context's (total,
-        per-device) cache memory; per rank on the mesh lane, total / P.
+        per-device) cache memory; per rank on the mesh lane, total / P:
+        a mesh rank keeps only its own cell's factors on its device (the
+        P-cell factorization is freed once the rank's row is taken).
     """
 
     def __init__(self, fitted: FittedPSVGP, config: ServeConfig | None = None, device=None,
@@ -129,8 +134,11 @@ class Server:
 
     @property
     def fitted(self) -> FittedPSVGP:
-        """The model currently live — the active context's."""
-        return self._active.fitted
+        """The model currently live — the active context's, on ``device``
+        (on the mesh lane a copy of the host model made now: the rank's
+        device keeps only its own cell while nobody holds one)."""
+        fitted = self._active.fitted
+        return fitted if self._mesh is None else fitted.to(self.device)
 
     @property
     def mesh(self) -> ss.HaloMesh | None:
@@ -196,8 +204,17 @@ class Server:
 
     def _build_mesh_stages(self, ctx: _ServingContext) -> None:
         fitted, grid, mesh = ctx.fitted, ctx.fitted.grid, self._mesh
-        local = ss.shard_cache(fitted.cache, mesh)
-        ctx.cache_bytes = ss.cache_memory_bytes(fitted.cache, local)
+        # all P cells factorized in one batch on the device (bitwise the
+        # one-process program's cache; a loaded cache is used as it is),
+        # not memoized on the model: only this rank's row stays on the
+        # device, and the context holds the model in host memory
+        cache = fitted._cache
+        if cache is None:
+            cache = psvgp.posterior_cache(fitted.static, fitted.state)
+        local = ctx.cache = ss.shard_cache(cache, mesh)
+        ctx.cache_bytes = ss.cache_memory_bytes(cache, local)
+        del cache
+        ctx.fitted = fitted.to("cpu")
         program = ss.make_sharded_blend(mesh, mesh.axis_names, grid, fitted.cov_fn,
                                         backend=self.backend)
         self._wire_halo_stages(ctx, ss.make_mesh_request_stages(

@@ -29,7 +29,7 @@ from repro_torch.core.posterior import (
     projection,
     s_chol,
 )
-from repro_torch.gp.covariances import CovarianceParams
+from repro_torch.gp.covariances import CovarianceParams, init_covariance_params
 from repro_torch.gp.likelihoods import gaussian_expected_loglik, poisson_expected_loglik
 
 
@@ -81,10 +81,9 @@ def init_svgp_params(
         m_star=torch.zeros((P, m), device=dev),
         s_tril=torch.zeros((P, m, m), device=dev),
         z=z,
-        cov=CovarianceParams(
-            log_lengthscale=torch.full((P, d), math.log(cfg.init_lengthscale), device=dev),
-            log_variance=torch.full((P,), math.log(cfg.init_variance), device=dev),
-        ),
+        cov=CovarianceParams(*(leaf.expand((P,) + leaf.shape).clone() for leaf in
+                               init_covariance_params(d, cfg.init_lengthscale,
+                                                      cfg.init_variance, device=dev))),
         log_beta=torch.full((P,), math.log(cfg.init_beta), device=dev),
     )
 

@@ -34,6 +34,20 @@ class CovarianceParams(NamedTuple):
     log_variance: torch.Tensor
 
 
+def init_covariance_params(
+    d: int, lengthscale: float = 1.0, variance: float = 1.0, dtype=torch.float32, device=None
+) -> CovarianceParams:
+    """``log_lengthscale`` (d,) filled with log(lengthscale) and a 0-d
+    ``log_variance``. Each log is taken in float64 and rounded once to
+    ``dtype``; XLA's float32 log, which JAX takes, is not correctly rounded
+    and differs from this by one unit in the last place at some arguments
+    (0.7 is one), and agrees at others (0.3, 0.5, 1, 2)."""
+    return CovarianceParams(
+        log_lengthscale=torch.full((d,), math.log(lengthscale), dtype=dtype, device=device),
+        log_variance=torch.tensor(math.log(variance), dtype=dtype, device=device),
+    )
+
+
 def ard_distance2(x: torch.Tensor, z: torch.Tensor, log_lengthscale: torch.Tensor) -> torch.Tensor:
     """Squared scaled distance sum_k (x_k - z_k)^2 / l_k^2, shape (..., n, m).
 

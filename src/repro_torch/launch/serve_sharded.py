@@ -72,6 +72,7 @@ from repro_torch.core import posterior, routing
 from repro_torch.core.blend import corner_ids_weights, predict_blended
 from repro_torch.core.partition import PartitionGrid
 from repro_torch.core.psvgp_spmd import grid_matches_mesh, make_shift
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 
 
@@ -636,19 +637,20 @@ def train_demo_surface(
     return ds, fitted
 
 
-def load_or_train(args, *, fit_cfg=None):
+def load_or_train(args, *, fit_cfg=None, host: bool = False):
     """The fit-or-load front of the GP serving CLIs: returns (ds, fitted),
     ds None when serving a persisted artifact (``--gp-artifact``; no
     retraining on that path), else :func:`train_demo_surface` on
     ``--gp-n`` points. ``--gp-save`` persists a freshly trained artifact;
     ``fit_cfg`` (a session file's fit section) replaces the flag-derived
     training config. Runs on ``--device`` (``"cuda"`` when absent: a
-    machine without a GPU raises)."""
+    machine without a GPU raises); ``host=True`` returns the model in host
+    memory (an artifact loads there, a trained model is moved there)."""
     from repro_torch import api
 
     device = getattr(args, "device", None)
     if getattr(args, "gp_artifact", None):
-        fitted = api.FittedPSVGP.load(args.gp_artifact, device=device)
+        fitted = api.FittedPSVGP.load(args.gp_artifact, device="cpu" if host else device)
         print(f"loaded artifact {args.gp_artifact}: grid="
               f"{fitted.grid.gx}x{fitted.grid.gy}, m={fitted.config.m} on "
               f"{fitted.device} (serving without retraining)")
@@ -661,7 +663,20 @@ def load_or_train(args, *, fit_cfg=None):
     if getattr(args, "gp_save", None):
         fitted.save(args.gp_save)
         print(f"artifact saved to {args.gp_save}")
-    return ds, fitted
+    return ds, fitted.to("cpu") if host else fitted
+
+
+def build_server(args, serve_cfg, group, *, fit_cfg=None):
+    """The model and ``api.Server`` of the sharded serving CLI on
+    ``--device``: returns (ds, fitted, server). On the mesh lane
+    (``group``) ``fitted`` is loaded into host memory and the server
+    moves it, so that a rank keeps only its own cell's factors on its
+    device."""
+    from repro_torch import api
+
+    ds, fitted = load_or_train(args, fit_cfg=fit_cfg, host=group is not None)
+    device = resolve_device(getattr(args, "device", None))
+    return ds, fitted, api.Server(fitted, serve_cfg, device=device, group=group)
 
 
 def query_batches(
@@ -768,8 +783,6 @@ def _serve_sharded(args, fit_cfg, serve_cfg, group) -> dict:
             say = _quiet
         if getattr(args, "device", None) in (None, "cuda") and torch.cuda.device_count() > 1:
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count())
-    ds, fitted = load_or_train(args, fit_cfg=fit_cfg)
-    grid = fitted.grid
     if serve_cfg is None:
         serve_cfg = api.ServeConfig(
             mode="sharded",
@@ -777,7 +790,8 @@ def _serve_sharded(args, fit_cfg, serve_cfg, group) -> dict:
             router=getattr(args, "gp_router", "single"),
             backend="auto",
         )
-    server = api.Server(fitted, serve_cfg, group=group)
+    ds, fitted, server = build_server(args, serve_cfg, group, fit_cfg=fit_cfg)
+    grid = fitted.grid
     total_b, device_b = server.cache_bytes
     if server.mesh is not None:
         lane = f"mesh over {server.mesh.size} ranks (gloo)"
@@ -795,17 +809,24 @@ def _serve_sharded(args, fit_cfg, serve_cfg, group) -> dict:
         seed=args.seed, skew=skew,
     )
 
-    # warmup + equivalence check against the replicated path
+    # warmup + equivalence check against the replicated path on the
+    # device; on the mesh lane rank 0 alone makes it, holding every cell
+    # there for it and freeing them after
     m0, v0 = server.submit(batches[0])
-    m_rep, v_rep = (a.cpu() for a in fitted.predict(batches[0]))
-    mean_err = float(np.abs(m0 - m_rep.numpy()).max())
-    var_err = float(np.abs(v0 - v_rep.numpy()).max())
-    mean_s, var_s = (a.cpu() for a in blend_error_scales(fitted.cache, grid, batches[0]))
-    ratio = (ref.tolerance_ratio(torch.as_tensor(m0), m_rep, mean_s),
-             ref.tolerance_ratio(torch.as_tensor(v0), v_rep, var_s))
-    say(f"sharded vs replicated on warmup batch: max|dmean|={mean_err:.2e} "
-        f"max|dvar|={var_err:.2e} (tolerance ratio mean {ratio[0]:.4f} "
-        f"var {ratio[1]:.4f}; <= 1 agrees)")
+    mean_err = var_err = None
+    ratio = (None, None)
+    if server.mesh is None or server.mesh.rank == 0:
+        whole = fitted.to(server.device)
+        m_rep, v_rep = (a.cpu() for a in whole.predict(batches[0]))
+        mean_s, var_s = (a.cpu() for a in blend_error_scales(whole.cache, grid, batches[0]))
+        del whole
+        mean_err = float(np.abs(m0 - m_rep.numpy()).max())
+        var_err = float(np.abs(v0 - v_rep.numpy()).max())
+        ratio = (ref.tolerance_ratio(torch.as_tensor(m0), m_rep, mean_s),
+                 ref.tolerance_ratio(torch.as_tensor(v0), v_rep, var_s))
+        say(f"sharded vs replicated on warmup batch: max|dmean|={mean_err:.2e} "
+            f"max|dvar|={var_err:.2e} (tolerance ratio mean {ratio[0]:.4f} "
+            f"var {ratio[1]:.4f}; <= 1 agrees)")
 
     # already warmed: the equivalence check above ran batch 0
     report = server.stream(batches, warm=False)

@@ -4,7 +4,14 @@ Port of the GQA half of ``repro.models.attention``: ``einsum`` logits in
 float32, a ``-1e30`` mask fill (not ``-inf``, so a fully masked row stays
 finite, as in JAX), a float32 softmax whose weights are cast back to the
 query dtype. Cross-attention (``encoder_kv``) comes with the encoder
-slice and MLA with its own (``ROADMAP.md`` queue 1, item 6).
+slice (``ROADMAP.md`` queue 1, item 6.6).
+
+MLA (Multi-head Latent Attention, DeepSeek-V2 / MiniCPM3) is the port of
+JAX's ``init_mla_params`` / ``mla_forward`` / ``init_mla_cache``: train and
+prefill expand the latents to per-head keys and values (query-chunked
+under ``attn_q_chunk``, each chunk recomputed in the backward); decode is
+ABSORBED, attending against the compressed latents ``c_kv`` (B, S, r) and
+the shared rope keys ``k_rope`` (B, S, dr) of the cache, written in place.
 
 Cache convention (serve path): a dict per attention block,
   {"k": (B, S_cache, KV, hd), "v": (B, S_cache, KV, hd)}
@@ -18,6 +25,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -30,7 +38,7 @@ from repro_torch.models.common import (
     rope_angles,
     window_mask,
 )
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import MLAConfig, ModelConfig
 
 _NEG_INF = -1e30
 
@@ -202,4 +210,120 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, seq: int, window: int, dtype,
     return {
         "k": torch.zeros(lead + (batch, Sc, KV, hd), dtype=dtype, device=device),
         "v": torch.zeros(lead + (batch, Sc, KV, hd), dtype=dtype, device=device),
+    }
+
+
+# --------------------------------------------------------------------------
+# MLA (Multi-head Latent Attention)
+# --------------------------------------------------------------------------
+
+
+def init_mla_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple[int, ...] = ()) -> Params:
+    a: MLAConfig = cfg.mla
+    D, H = cfg.d_model, cfg.num_heads
+    qd = a.qk_nope_head_dim + a.qk_rope_head_dim
+    ones = {"dtype": torch.float32, "device": gen.device}
+    return {
+        "w_dq": dense_init(gen, (D, a.q_lora_rank), lead=lead),
+        "q_norm": torch.ones(lead + (a.q_lora_rank,), **ones),
+        "w_uq": dense_init(gen, (a.q_lora_rank, H * qd), lead=lead),
+        "w_dkv": dense_init(gen, (D, a.kv_lora_rank), lead=lead),
+        "kv_norm": torch.ones(lead + (a.kv_lora_rank,), **ones),
+        "w_kr": dense_init(gen, (D, a.qk_rope_head_dim), lead=lead),
+        "w_uk": dense_init(gen, (a.kv_lora_rank, H * a.qk_nope_head_dim), lead=lead),
+        "w_uv": dense_init(gen, (a.kv_lora_rank, H * a.v_head_dim), lead=lead),
+        "wo": dense_init(gen, (H * a.v_head_dim, D), lead=lead),
+    }
+
+
+def mla_forward(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    cache: Params | None = None,
+    cache_pos: torch.Tensor | int | None = None,
+) -> tuple[torch.Tensor, Params | None]:
+    """One MLA call; modes as :func:`gqa_forward`'s (train, prefill,
+    decode). The cache is written in place and returned."""
+    a: MLAConfig = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    dn, dr, dv, r = a.qk_nope_head_dim, a.qk_rope_head_dim, a.v_head_dim, a.kv_lora_rank
+    dt = x.dtype
+    dev = x.device
+    # float32 1 / sqrt(dn + dr), both ops rounded in float32 as JAX's
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dn + dr)))
+
+    cq = rms_norm(x @ p["w_dq"].to(dt), p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"].to(dt)).reshape(B, S, H, dn + dr)
+    qn, qr = q[..., :dn], q[..., dn:]
+    cos, sin = rope_angles(positions, dr, cfg.rope_theta)
+    qr = apply_rope(qr, cos, sin)
+
+    c_kv = rms_norm(x @ p["w_dkv"].to(dt), p["kv_norm"], cfg.norm_eps)  # (B, S, r)
+    kr = (x @ p["w_kr"].to(dt)).reshape(B, S, 1, dr)
+    kr = apply_rope(kr, cos, sin)[:, :, 0]  # (B, S, dr), shared across heads
+
+    if cache is None or S > 1:
+        # train / prefill: expand the latents
+        kn = (c_kv @ p["w_uk"].to(dt)).reshape(B, S, H, dn)
+        v = (c_kv @ p["w_uv"].to(dt)).reshape(B, S, H, dv)
+
+        def block(qn_i, qr_i, off):
+            lg = (torch.einsum("bshd,bthd->bhst", qn_i, kn)
+                  + torch.einsum("bshd,btd->bhst", qr_i, kr)).to(torch.float32) * scale
+            m = causal_mask(qn_i.shape[1], S, off, dev)
+            lg = torch.where(m[None, None], lg, _NEG_INF)
+            w = torch.softmax(lg, dim=-1).to(dt)
+            return torch.einsum("bhst,bthd->bshd", w, v)
+
+        qc = cfg.attn_q_chunk
+        if cache is None and qc and S > qc and S % qc == 0:
+            # query-chunked, each chunk recomputed in the backward
+            grad = torch.is_grad_enabled()
+            outs = []
+            for ci in range(S // qc):
+                sl = slice(ci * qc, (ci + 1) * qc)
+                if grad:
+                    outs.append(checkpoint(block, qn[:, sl], qr[:, sl], ci * qc,
+                                           use_reentrant=False))
+                else:
+                    outs.append(block(qn[:, sl], qr[:, sl], ci * qc))
+            out = torch.cat(outs, dim=1).reshape(B, S, H * dv)
+        else:
+            out = block(qn, qr, 0).reshape(B, S, H * dv)
+        if cache is not None:
+            # the prefill writes the latents at offset 0
+            cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
+            cache["k_rope"][:, :S] = kr.to(cache["k_rope"].dtype)
+    else:
+        # decode: ABSORBED attention against the compressed latents
+        ck, kk = cache["c_kv"], cache["k_rope"]
+        _write(ck, cache_pos, c_kv)
+        _write(kk, cache_pos, kr)
+        T = ck.shape[1]
+        w_uk = p["w_uk"].to(dt).reshape(r, H, dn)
+        q_lat = torch.einsum("bshd,rhd->bshr", qn, w_uk)  # (B, 1, H, r)
+        ckd = ck.to(dt)
+        logits = (torch.einsum("bshr,btr->bhst", q_lat, ckd)
+                  + torch.einsum("bshd,btd->bhst", qr, kk.to(dt))).to(torch.float32) * scale
+        valid = torch.arange(T, device=dev) <= cache_pos
+        logits = torch.where(valid[None, None, None], logits, _NEG_INF)
+        w = torch.softmax(logits, dim=-1).to(dt)
+        o_lat = torch.einsum("bhst,btr->bshr", w, ckd)  # (B, 1, H, r)
+        w_uv = p["w_uv"].to(dt).reshape(r, H, dv)
+        out = torch.einsum("bshr,rhd->bshd", o_lat, w_uv).reshape(B, S, H * dv)
+
+    return out @ p["wo"].to(dt), cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, seq: int, dtype, device=None,
+                   lead: tuple[int, ...] = ()) -> Params:
+    a: MLAConfig = cfg.mla
+    return {
+        "c_kv": torch.zeros(lead + (batch, seq, a.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros(lead + (batch, seq, a.qk_rope_head_dim), dtype=dtype,
+                              device=device),
     }

@@ -1,25 +1,27 @@
-"""Model assembly for the dense blocks: pattern periods over GQA layers.
+"""Model assembly: pattern periods over composable blocks (PyTorch).
 
-Port of the dense half of ``repro.models.transformer``. A LAYER is a
-temporal-mixing block (``attn`` or ``local_attn``) plus — unless
-``mlp_kind == "none"`` — a SwiGLU or GeLU feed-forward block, each
-pre-normed with residuals.
+Port of ``repro.models.transformer`` for the blocks the port has: a LAYER
+is a temporal-mixing block (``attn``, ``local_attn`` or ``mla``) plus —
+unless ``mlp_kind == "none"`` — a feed-forward block (SwiGLU/GeLU, or MoE
+for MoE archs), each pre-normed with residuals.
 
 The parameter and cache trees are JAX's, key path for key path: the
 layers of all full PATTERN PERIODS (cfg.block_pattern) are stacked on a
 leading period axis under ``"stack"`` (a cache leaf is (P, B, S, KV, hd)),
-a partial trailing period is the list ``"remainder"``, then
+a partial trailing period is the list ``"remainder"``, DeepSeekMoE's dense
+layer 0 (``moe.first_layer_dense``) is ``"prelude"``, then
 ``"final_norm"``, and ``"lm_head"`` only when embeddings are untied. So
 :func:`params_from_numpy` carries JAX's parameters across leaf by leaf,
 and LM train states checkpoint both ways (``repro_torch.checkpoint``).
 Where JAX scans over the periods, the port loops over them in Python on
 views of the stacked leaves; decode writes into the stacked cache in
 place. ``cfg.remat`` becomes ``torch.utils.checkpoint`` per period, in
-training only.
+training only. The MoE layers' load-balance losses are summed over the
+layers in JAX's order (prelude, periods, remainder).
 
-The other block kinds and sub-models (MoE, MLA, xLSTM, RG-LRU, the
-encoder and the vision stub) raise ``NotImplementedError`` naming their
-slice of ``ROADMAP.md`` queue 1, item 6.
+The other block kinds and sub-models (xLSTM, RG-LRU, the encoder and the
+vision stub) raise ``NotImplementedError`` naming their slice of
+``ROADMAP.md`` queue 1, item 6.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
     Params,
     apply_mlp,
@@ -46,24 +49,34 @@ Cache = dict[str, Any]
 # what the port does not have yet, and the slice of ROADMAP.md queue 1,
 # item 6 that brings it
 NOT_PORTED = {
-    "moe": "MoE blocks: ROADMAP.md queue 1, item 6.2",
     "mlstm": "xLSTM blocks: ROADMAP.md queue 1, item 6.3",
     "slstm": "xLSTM blocks: ROADMAP.md queue 1, item 6.3",
     "rglru": "RG-LRU blocks: ROADMAP.md queue 1, item 6.4",
-    "mla": "MLA blocks: ROADMAP.md queue 1, item 6.5",
     "encoder": "the encoder-decoder: ROADMAP.md queue 1, item 6.6",
     "vision": "the vision stub: ROADMAP.md queue 1, item 6.7",
 }
 
 
+MIXING = ("attn", "local_attn", "mla")
+
+
+def layout(cfg: ModelConfig) -> tuple[bool, int, tuple[str, ...]]:
+    """(dense prelude layer?, full periods, remainder kinds), as JAX's
+    ``init_model_params`` splits the layers: DeepSeekMoE's dense layer 0
+    stands before the periods."""
+    prelude = cfg.moe is not None and cfg.moe.first_layer_dense
+    n_scan = cfg.num_layers - (1 if prelude else 0)
+    return prelude, n_scan // cfg.period, cfg.block_pattern[: n_scan % cfg.period]
+
+
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the slice that brings what
     ``cfg`` needs and the port does not have yet."""
-    parts = [b for b in cfg.block_pattern if b not in ("attn", "local_attn")]
-    parts += [name for name in ("moe", "encoder", "vision") if getattr(cfg, name) is not None]
+    parts = [b for b in cfg.block_pattern if b not in MIXING]
+    parts += [name for name in ("encoder", "vision") if getattr(cfg, name) is not None]
     if parts:
         raise NotImplementedError(
-            f"{cfg.name}: the port has the dense attention blocks only; "
+            f"{cfg.name}: the port has the attention, MLA and MoE blocks only; "
             f"{NOT_PORTED[parts[0]]}"
         )
 
@@ -86,16 +99,22 @@ def _mlp_kind(cfg: ModelConfig) -> str:
 
 
 def init_layer_params(gen: torch.Generator, cfg: ModelConfig, kind: str,
-                      lead: tuple[int, ...] = ()) -> Params:
-    """One layer: mixing + optional FFN; ``lead`` stacks periods."""
-    if kind not in ("attn", "local_attn"):
+                      lead: tuple[int, ...] = (), *, dense_ffn: bool = False) -> Params:
+    """One layer: mixing + optional FFN; ``lead`` stacks periods;
+    ``dense_ffn`` gives an MoE config's prelude its dense FFN."""
+    if kind not in MIXING:
         raise NotImplementedError(NOT_PORTED.get(kind, kind))
     ones = {"dtype": torch.float32, "device": gen.device}
-    p: Params = {"ln1": torch.ones(lead + (cfg.d_model,), **ones),
-                 "mix": attn.init_gqa_params(gen, cfg, lead)}
+    mix = attn.init_mla_params(gen, cfg, lead) if kind == "mla" else \
+        attn.init_gqa_params(gen, cfg, lead)
+    p: Params = {"ln1": torch.ones(lead + (cfg.d_model,), **ones), "mix": mix}
     if cfg.mlp_kind != "none":
         p["ln2"] = torch.ones(lead + (cfg.d_model,), **ones)
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, _mlp_kind(cfg), lead)
+        if cfg.moe is not None and not dense_ffn:
+            p["moe"] = moe_lib.init_moe_params(gen, cfg, lead)
+        else:
+            d_ff = cfg.moe.dense_d_ff if (cfg.moe is not None and dense_ffn) else cfg.d_ff
+            p["mlp"] = init_mlp(gen, cfg.d_model, d_ff, _mlp_kind(cfg), lead)
     return p
 
 
@@ -105,6 +124,8 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq: int, dtype,
         return attn.init_gqa_cache(cfg, batch, seq, 0, dtype, device, lead)
     if kind == "local_attn":
         return attn.init_gqa_cache(cfg, batch, seq, cfg.sliding_window, dtype, device, lead)
+    if kind == "mla":
+        return attn.init_mla_cache(cfg, batch, seq, dtype, device, lead)
     raise NotImplementedError(NOT_PORTED.get(kind, kind))
 
 
@@ -117,19 +138,29 @@ def layer_forward(
     *,
     cache: Cache | None = None,
     cache_pos: torch.Tensor | int | None = None,
-) -> tuple[torch.Tensor, Cache | None]:
-    """Returns (x, cache); a given cache is written in place."""
-    if kind not in ("attn", "local_attn"):
+    moe_group=None,
+) -> tuple[torch.Tensor, Cache | None, torch.Tensor]:
+    """Returns (x, cache, aux_loss); a given cache is written in place."""
+    if kind not in MIXING:
         raise NotImplementedError(NOT_PORTED.get(kind, kind))
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    window = cfg.sliding_window if kind == "local_attn" else 0
-    out, cache = attn.gqa_forward(p["mix"], cfg, h, positions, window=window, cache=cache,
-                                  cache_pos=cache_pos)
+    if kind == "mla":
+        out, cache = attn.mla_forward(p["mix"], cfg, h, positions, cache=cache,
+                                      cache_pos=cache_pos)
+    else:
+        window = cfg.sliding_window if kind == "local_attn" else 0
+        out, cache = attn.gqa_forward(p["mix"], cfg, h, positions, window=window, cache=cache,
+                                      cache_pos=cache_pos)
     x = x + out
-    if "mlp" in p:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "moe" in p:
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        out, aux = moe_lib.moe_forward(p["moe"], cfg, h, group=moe_group)
+        x = x + out
+    elif "mlp" in p:
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + apply_mlp(p["mlp"], h, _mlp_kind(cfg))
-    return x, cache
+    return x, cache, aux
 
 
 # --------------------------------------------------------------------------
@@ -142,14 +173,17 @@ def init_model_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     cfg.validate()
     check_ported(cfg)
     D, V = cfg.d_model, cfg.padded_vocab_size
+    prelude, n_periods, rem = layout(cfg)
     p: Params = {"embed": embed_init(gen, (V, D))}
     if cfg.pos_kind == "learned":
         p["pos_embed"] = embed_init(gen, (cfg.max_position, D))
+    if prelude:
+        p["prelude"] = init_layer_params(gen, cfg, cfg.block_pattern[0], dense_ffn=True)
     p["stack"] = {
-        f"b{i}": init_layer_params(gen, cfg, kind, lead=(cfg.num_periods,))
+        f"b{i}": init_layer_params(gen, cfg, kind, lead=(n_periods,))
         for i, kind in enumerate(cfg.block_pattern)
     }
-    p["remainder"] = [init_layer_params(gen, cfg, kind) for kind in cfg.remainder_pattern]
+    p["remainder"] = [init_layer_params(gen, cfg, kind) for kind in rem]
     p["final_norm"] = torch.ones((D,), dtype=torch.float32, device=gen.device)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (D, V))
@@ -160,15 +194,17 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16,
                device=None) -> Cache:
     """Decode cache sized for ``seq`` total positions."""
     check_ported(cfg)
-    return {
+    prelude, n_periods, rem = layout(cfg)
+    c: Cache = {
         "stack": {
-            f"b{i}": init_layer_cache(cfg, kind, batch, seq, dtype, device,
-                                      lead=(cfg.num_periods,))
+            f"b{i}": init_layer_cache(cfg, kind, batch, seq, dtype, device, lead=(n_periods,))
             for i, kind in enumerate(cfg.block_pattern)
         },
-        "remainder": [init_layer_cache(cfg, kind, batch, seq, dtype, device)
-                      for kind in cfg.remainder_pattern],
+        "remainder": [init_layer_cache(cfg, kind, batch, seq, dtype, device) for kind in rem],
     }
+    if prelude:
+        c["prelude"] = init_layer_cache(cfg, cfg.block_pattern[0], batch, seq, dtype, device)
+    return c
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:
@@ -203,13 +239,16 @@ def forward(
     *,
     cache: Cache | None = None,
     cache_pos: torch.Tensor | int | None = None,
+    moe_group=None,
 ) -> tuple[torch.Tensor, Cache | None, torch.Tensor]:
     """Full model forward.
 
     tokens (B, S) integer. cache/cache_pos: decode state (cache_pos =
     #tokens already consumed; a host int or a () tensor); the cache is
-    written in place and returned. Returns (logits fp32 (B, S, V), cache,
-    aux_loss), aux_loss 0 for the dense blocks.
+    written in place and returned. moe_group: a ``torch.distributed``
+    group every MoE layer splits its experts over (``moe.moe_forward``).
+    Returns (logits fp32 (B, S, V), cache, aux_loss), aux_loss the MoE
+    layers' load-balance losses summed (0 without MoE).
     """
     check_ported(cfg)
     dt = torch_dtype(cfg.dtype)
@@ -230,27 +269,37 @@ def forward(
         pe = params["pos_embed"][torch.clamp(positions, max=cfg.max_position - 1)]
         x = x + pe.to(dt)[None]
 
-    def period_body(h, p_per, c_per):
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    if "prelude" in params:
+        pc = cache["prelude"] if cache is not None else None
+        x, _, aux = layer_forward(params["prelude"], cfg, cfg.block_pattern[0], x, positions,
+                                  cache=pc, cache_pos=cache_pos, moe_group=moe_group)
+        aux_total = aux_total + aux
+
+    def period_body(h, aux_acc, p_per, c_per):
         for i, kind in enumerate(cfg.block_pattern):
             ci = c_per[f"b{i}"] if c_per is not None else None
-            h, _ = layer_forward(p_per[f"b{i}"], cfg, kind, h, positions, cache=ci,
-                                 cache_pos=cache_pos)
-        return h
+            h, _, aux = layer_forward(p_per[f"b{i}"], cfg, kind, h, positions, cache=ci,
+                                      cache_pos=cache_pos, moe_group=moe_group)
+            aux_acc = aux_acc + aux
+        return h, aux_acc
 
-    n_per = cfg.num_periods
+    _, n_per, _ = layout(cfg)
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     per_params = _unstack(params["stack"], n_per)
     for pi in range(n_per):
         c_per = tree_map(lambda a, pi=pi: a[pi], cache["stack"]) if cache is not None else None
         if remat:
-            x = checkpoint(period_body, x, per_params[pi], None, use_reentrant=False)
+            x, aux_total = checkpoint(period_body, x, aux_total, per_params[pi], None,
+                                      use_reentrant=False)
         else:
-            x = period_body(x, per_params[pi], c_per)
+            x, aux_total = period_body(x, aux_total, per_params[pi], c_per)
 
     for i, lp in enumerate(params["remainder"]):
         ci = cache["remainder"][i] if cache is not None else None
-        x, _ = layer_forward(lp, cfg, cfg.block_pattern[i], x, positions, cache=ci,
-                             cache_pos=cache_pos)
+        x, _, aux = layer_forward(lp, cfg, cfg.block_pattern[i], x, positions, cache=ci,
+                                  cache_pos=cache_pos, moe_group=moe_group)
+        aux_total = aux_total + aux
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -259,4 +308,4 @@ def forward(
         # mask the pad slots (targets never reference them)
         pad_mask = torch.arange(cfg.padded_vocab_size, device=dev) < cfg.vocab_size
         logits = torch.where(pad_mask, logits, -1e30)
-    return logits, cache, torch.zeros((), dtype=torch.float32, device=dev)
+    return logits, cache, aux_total

@@ -685,6 +685,28 @@ def test_cli_full_run_clean_on_the_shipped_port(mesh_runs, tmp_path, capsys):
     assert report["passes"]["contracts"]["targets_skipped"] == []
 
 
+def test_server_probe_keeps_one_cell_a_rank_at_every_p(mesh_runs):
+    """The costs pass's ``Server(group=)`` probe (the CLI's spawn), built
+    from a saved artifact as the torchrun CLI builds it: every rank
+    reports total / P as its cache bytes and answers the whole request;
+    the CPU has no CUDA numbers and no memory finding."""
+    server = costs.measure_server(device="cpu")  # memoized by the spawn above
+    assert sorted(server, key=int) == ["4", "9", "16"]
+    for p, ranks in server.items():
+        assert len(ranks) == int(p)
+        for rec in ranks:
+            total, per_rank = rec["cache_bytes"]
+            assert per_rank * int(p) == total and rec["answers"] == 8 * int(p)
+            assert rec["cuda_resident_bytes"] is None
+    assert costs.check_server_memory(server, MESH_BUDGET) == []
+    grown = {p: [dict(r, cuda_resident_bytes=200_000 * int(p)) for r in ranks]
+             for p, ranks in server.items()}
+    assert _rules(costs.check_server_memory(grown, MESH_BUDGET)) == ["COST-MEM-SCALING"]
+    flat = {p: [dict(r, cuda_resident_bytes=300_000) for r in ranks]
+            for p, ranks in server.items()}
+    assert costs.check_server_memory(flat, MESH_BUDGET) == []
+
+
 def test_cli_exits_1_on_cost_drift(mesh_runs, tmp_path):
     baseline = json.loads(open(costs.DEFAULT_BASELINE, encoding="utf-8").read())
     for rec in baseline["programs"].values():

@@ -12,9 +12,13 @@ sharded warm-up's tolerance ratio against the replicated answers, <= 1,
 as ``ref.tolerance_ratio`` of the blend's summed terms); ``--gp --http``
 answering a request; ``python -m repro_torch.launch.serve_sharded`` on the
 one-process program and under ``torchrun`` on the mesh lane; the refusals
-(``--arch``, ``--sharded`` or ``--http`` without ``--gp``, no GPU without
-``--device cpu``); ``--help`` of every new CLI touching no CUDA state and
-no process group; each ``examples/*_torch.py`` twin.
+(``--arch`` of an unported architecture, ``--sharded`` or ``--http``
+without ``--gp``, no GPU without ``--device cpu``); ``--help`` of every
+new CLI touching no CUDA state and no process group; each
+``examples/*_torch.py`` twin (``serve_demo_torch.py`` in its LM mode, the
+default, and under ``--gp``; an unported ``--arch`` exits naming its
+slice); ``launch.serve --arch`` and ``launch.train --arch`` at ``--smoke``
+for the MoE and MLA architectures.
 """
 from __future__ import annotations
 
@@ -179,8 +183,8 @@ def test_serve_gp_http_answers_a_request(tmp_path):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--arch", "deepseek-moe-16b", "--smoke", "--device", "cpu"],
-     "MoE blocks: ROADMAP.md queue 1, item 6.2"),
+    (["--arch", "xlstm-350m", "--smoke", "--device", "cpu"],
+     "xLSTM blocks: ROADMAP.md queue 1, item 6.3"),
     (["--sharded"], "add --gp"),
     (["--http"], "add --gp"),
     ([], "--arch required (or --gp"),
@@ -269,17 +273,39 @@ def test_help_touches_no_cuda_state_and_no_process_group(target):
       "--deltas", "0.125", "--comm", "ppermute"], "comm=ppermute"),
     (["examples/e3sm_insitu_torch.py", "--sim-steps", "3", "--n-obs", "600", "--grid", "3",
       "--first-fit-iters", "20", "--iters-per-step", "10"], "replays bitwise"),
-    (["examples/serve_demo_torch.py", "--n", "600", "--grid", "3", "--iters", "20",
+    (["examples/serve_demo_torch.py", "--gp", "--n", "600", "--grid", "3", "--iters", "20",
       "--requests", "3", "--batch", "64"], "replicated/serial"),
-    (["examples/serve_demo_torch.py", "--sharded", "--n", "600", "--grid", "3", "--iters",
-      "20", "--requests", "3", "--batch", "64"], "sharded/pipelined"),
+    (["examples/serve_demo_torch.py", "--gp", "--sharded", "--n", "600", "--grid", "3",
+      "--iters", "20", "--requests", "3", "--batch", "64"], "sharded/pipelined"),
+    (["examples/serve_demo_torch.py", "--arch", "deepseek-moe-16b", "--prompt-len", "16",
+      "--gen", "4"], "arch=deepseek-moe-16b-smoke device=cpu"),
     (["examples/lm_train_torch.py", "--steps", "20", "--batch", "2", "--seq", "32"],
      "step    20  loss"),
 ], ids=["quickstart", "delta_sweep", "delta_sweep-ppermute", "e3sm_insitu", "serve_demo",
-        "serve_demo-sharded", "lm_train"])
+        "serve_demo-sharded", "serve_demo-lm", "lm_train"])
 def test_example_twin_runs_on_the_cpu(argv, needle):
     r = _run([*argv, "--device", "cpu"], timeout=180)
     assert r.returncode == 0, r.stderr[-3000:]
     assert needle in r.stdout
     nums = [float(v) for v in re.findall(r"(?:RMSPE|RMSD)\s*:?\s*\|?\s*([0-9.]+)", r.stdout)]
     assert all(np.isfinite(nums))
+
+
+def test_serve_demo_twin_refuses_an_unported_arch_naming_its_slice():
+    r = _run(["examples/serve_demo_torch.py", "--arch", "whisper-base", "--device", "cpu"],
+             timeout=120)
+    assert r.returncode == 2, r.stderr[-2000:]
+    assert "the encoder-decoder: ROADMAP.md queue 1, item 6.6" in r.stderr
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-30b-a3b", "minicpm3-4b"])
+def test_lm_clis_serve_and_train_the_moe_and_mla_smoke_configs(arch):
+    r = _run(["-m", "repro_torch.launch.serve", "--arch", arch, "--smoke", "--device", "cpu",
+              "--prompt-len", "16", "--gen", "4", "--temperature", "0"], timeout=180)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert f"arch={arch}-smoke device=cpu" in r.stdout and "decode: 4 steps x 4 seqs" in r.stdout
+    r = _run(["-m", "repro_torch.launch.train", "--arch", arch, "--smoke", "--device", "cpu",
+              "--steps", "2", "--batch", "2", "--seq", "16", "--log-every", "1"], timeout=180)
+    assert r.returncode == 0, r.stderr[-3000:]
+    losses = [float(v) for v in re.findall(r"loss ([0-9.]+)", r.stdout)]
+    assert len(losses) == 2 and np.isfinite(losses).all() and "done." in r.stdout

@@ -6,7 +6,8 @@ tokens:
 
   * every config copy equals JAX's, field by field; the architectures
     whose blocks are not ported yet still ``get()``, and raise in
-    ``init_model_params`` / ``init_cache`` naming their slice;
+    ``init_model_params`` / ``init_cache`` naming their slice; the MoE
+    and MLA smoke configs build, serve and take a training step;
   * ``forward`` equals JAX's for the dense test configs of
     ``tests/test_models.py`` (qk-norm + QKV bias, sliding window), the smoke
     configs of qwen3-0.6b, qwen2-0.5b and h2o-danube-3-4b, and a two-kind
@@ -143,11 +144,8 @@ def test_registry_copy():
 
 
 @pytest.mark.parametrize("arch,slice_", [
-    ("deepseek-moe-16b", "MoE blocks: ROADMAP.md queue 1, item 6.2"),
-    ("qwen3-moe-30b-a3b", "MoE blocks: ROADMAP.md queue 1, item 6.2"),
     ("xlstm-350m", "xLSTM blocks: ROADMAP.md queue 1, item 6.3"),
     ("recurrentgemma-2b", "RG-LRU blocks: ROADMAP.md queue 1, item 6.4"),
-    ("minicpm3-4b", "MLA blocks: ROADMAP.md queue 1, item 6.5"),
     ("whisper-base", "the encoder-decoder: ROADMAP.md queue 1, item 6.6"),
     ("internvl2-76b", "the vision stub: ROADMAP.md queue 1, item 6.7"),
 ])
@@ -161,6 +159,25 @@ def test_unported_architectures_raise_naming_their_slice(arch, slice_):
         tt.init_cache(cfg, 1, 8)
     with pytest.raises(NotImplementedError, match=slice_):
         tsteps.init_train_state(gen, cfg)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-30b-a3b", "minicpm3-4b"])
+def test_moe_and_mla_smoke_configs_serve_and_train(arch):
+    """The architectures slice 11 brought (MoE, MLA) build, prefill, decode
+    and take a training step at their smoke configs; parity with JAX is in
+    tests/test_torch_moe.py and tests/test_torch_mla.py."""
+    cfg = treg.get_smoke(arch)
+    state = tsteps.init_train_state(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(_tokens(cfg, (2, 16), 0))
+    logits, cache = tsteps.make_prefill_step(cfg, 20)(state.params, toks)
+    assert logits.shape == (2, cfg.padded_vocab_size) and bool(torch.isfinite(logits).all())
+    assert ("prelude" in cache) == (cfg.moe is not None and cfg.moe.first_layer_dense)
+    logits, cache = tsteps.make_decode_step(cfg)(state.params, cache, 16, toks[:, :1])
+    assert bool(torch.isfinite(logits).all())
+    new, metrics = tsteps.make_train_step(cfg)(state, {"tokens": toks,
+                                                       "targets": torch.roll(toks, -1, 1)})
+    assert new.step == 1 and np.isfinite(float(metrics["loss"]))
+    assert (float(metrics["aux"]) > 0) == (cfg.moe is not None)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,9 @@ under ``tmp_path``; every ``join`` has its own timeout. The mirrors of
     package's ``routing.predict_routed`` on a JAX-trained artifact,
     computed in this process, never in a rank;
   * per-rank ``cache_bytes`` is total / P, and a request costs 4 shifts;
+    a rank's context keeps only its own cell of the factorized cache and
+    holds the model in host memory; ``Server.fitted`` hands out the whole
+    model on the server's device;
   * a group whose world size is not gx * gy raises, naming both numbers.
 
 On the card (``cuda``-marked, skipped without a GPU): 4 ranks on one GPU,
@@ -102,6 +105,16 @@ def _rank_serve(device, artifact, other_artifact):
         }
     out["cache_bytes"] = server.cache_bytes
     out["lane"] = (server.mesh.size, server.mesh.rank, server.mesh.cell)
+    from repro_torch.core import posterior
+
+    live = server.fitted
+    out["resident"] = {
+        "leading": sorted({t.shape[0] for t in posterior.cache_leaves(server._active.cache)}),
+        "held_device": str(server._active.fitted.device),
+        "live_device": str(live.device) == str(server.device),
+        "live_cells": int(live.state.params.m_star.shape[0]),
+    }
+    del live
     try:
         api.Server(api.FittedPSVGP.load(other_artifact, device=device),
                    api.ServeConfig(mode="sharded"), group=dist.group.WORLD)
@@ -316,6 +329,17 @@ def test_per_rank_cache_bytes_is_total_over_p_and_a_request_is_four_shifts(mesh_
             assert cfg["mesh"]["exchange_s"] > 0 and cfg["mesh"]["gather_s"] > 0
 
 
+def test_a_rank_keeps_only_its_cell_and_serves_a_host_model(mesh_run):
+    """The mesh rank's context holds its own cell (leading axis 1) of the
+    P-batched factorization and frees the rest; the model it serves stays
+    whole in host memory, and ``Server.fitted`` is the whole model on the
+    server's device."""
+    side, fitted, results = mesh_run
+    for res in results:
+        assert res["resident"] == {"leading": [1], "held_device": "cpu", "live_device": True,
+                                   "live_cells": side * side}
+
+
 def test_a_wrong_world_size_raises_naming_both_numbers(mesh_run):
     side, _, results = mesh_run
     other = 5 - side
@@ -363,3 +387,7 @@ def test_cuda_mesh_lane_is_bitwise_the_one_process_program(cuda_device, artifact
                 assert np.array_equal(gm, wm) and np.array_equal(gv, wv)
             # auto is the fused lane on CUDA: one slots launch a request
             assert cfg["launches"]["posterior_predict_slots"] == 5
+    for res in results:
+        # the rank's card keeps one cell; the live model is handed out there
+        assert res["resident"] == {"leading": [1], "held_device": "cpu", "live_device": True,
+                                   "live_cells": 4}
