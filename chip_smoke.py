@@ -84,7 +84,8 @@ Phases, each printed as it runs; any failure exits non-zero:
               (the Fig. 4 sweep, both comm modes); examples/
               e3sm_insitu_torch.py --sim-steps 3. Any non-zero exit fails.
   9. mesh     the halo mesh: a 4 x 4 model (m 5, 150 steps) served by 16
-              spawned ranks over gloo, all on the card, one cell each, 20
+              spawned ranks over gloo, all on the card, one cell each (the
+              spawn phase 10 shares: each rank serves, then trains), 20
               uniform 4,096-point requests serial and pipelined: bitwise the
               one-process halo program, one slots launch a rank a request
               (wrapper and torch.profiler), cache bytes a rank total / 16;
@@ -154,7 +155,22 @@ Phases, each printed as it runs; any failure exits non-zero:
               layer on 2 spawned gloo ranks, 32 experts each, against the
               local path (<= 2e-5 x max(1, max|out|), aux equal, 1
               all-reduce a forward), and launch.serve --arch and
-              launch.train --arch of the three at --smoke, all at once.
+              launch.train --arch of the three and of phase 14's two at
+              --smoke, all at once.
+ 14. xlstm-vlm xLSTM and the vision stub at the published width, random
+              from --seed: xlstm-350m uncut (24 layers, 5 mLSTM : 1
+              sLSTM, 590,423,200 parameters) and internvl2-76b served at 4
+              of 80 layers (5,617,295,360; 256 seeded patches of 3,200
+              prepended, a cache of 256 + 128 + 16 positions). Each:
+              prefill(128) + 8 decode steps against the uncached forward,
+              batch 4, fp32 and bf16 (phase 13's bounds);
+              launch.serve.generate (4 x 128, 16 tokens): tok/s, the
+              decode step's host share, peak memory. xlstm-350m: 8 AdamW
+              steps on one 8 x 256 batch falling (remat), 5 timed steps on
+              CUDA events, peak memory. internvl2-76b is not trained at
+              its published width here (~92 GB at one layer).
+
+Each phase's seconds are printed as "[phases] <phase>: <s> s".
 
 Tolerances (``repro_torch.kernels.ref.tolerance_ratio``): float32 rounding
 scaled by the magnitude of the terms each output sums — prediction: per
@@ -1512,7 +1528,6 @@ def entry_points_phase(card: str, report: dict, commands=None) -> None:
 MESH_SIDE = 4
 MESH_REQUESTS = 20
 MESH_PROFILED = 5
-MESH_JOIN_S = 300
 
 
 def _digest(results: list) -> str:
@@ -1525,83 +1540,58 @@ def _digest(results: list) -> str:
     return h.hexdigest()
 
 
-def mesh_rank(rank: int, world: int, store: str, artifact: str, reqs_file: str,
-              out_dir: str, device: str) -> None:
-    """One rank of phase 9 (a spawned process): serve the requests on the
-    mesh lane, serial then pipelined, count its slots launches by wrapper
-    and by profiler, and write what it saw to ``out_dir``."""
-    import pickle
-    import traceback
-
+def _mesh_serve(group, artifact: str, reqs_file: str, device: str) -> dict:
+    """Phase 9 in one rank of the shared spawn: serve the requests on the
+    mesh lane, serial then pipelined, and count the rank's slots launches
+    by wrapper and by profiler."""
     import torch
 
-    torch.set_num_threads(1)
-    try:
-        import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.kernels import predict
 
-        from repro_torch import api
-        from repro_torch.kernels import predict
-
-        torch.backends.cuda.matmul.allow_tf32 = False
-        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
-                                world_size=world)
-        try:
-            reqs = list(np.load(reqs_file)["reqs"])
-            fitted = api.FittedPSVGP.load(artifact, device=device)
-            out: dict = {}
-            for pipeline in ("serial", "pipelined"):
-                server = api.Server(fitted, api.ServeConfig(mode="sharded", pipeline=pipeline),
-                                    group=dist.group.WORLD)
-                server.submit(reqs[0])  # warm-up, not counted
-                server.reset_stats()
-                predict.reset_launches()
-                res: list = []
-                t0 = time.perf_counter()
-                rec = server.stream(reqs, warm=False, on_result=lambda i, r, res=res: res.append(r))
-                wall = time.perf_counter() - t0
-                out[pipeline] = {
-                    "digest": _digest(res), "latency_ms": rec["latency_ms"], "wall_s": wall,
-                    "mesh": server.stats()["mesh"], "launches": dict(predict.LAUNCHES),
-                    "qmax": rec["qmax_policy"], "backend": server.backend,
-                }
-                if rank == 0:
-                    out[pipeline]["results"] = res
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for q in reqs[:MESH_PROFILED]:
-                    server.submit(q)
-            on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-            out["profiler"] = {
-                "device_events": len(on_card),
-                "slots_kernels": sum("predict_kernel" in e.name or "predict_wide_kernel" in e.name
-                                     for e in on_card),
-            }
-            out["cache_bytes"] = server.cache_bytes
-            out["cell"] = server.mesh.cell
-            dist.barrier()
-        finally:
-            dist.destroy_process_group()
-    except Exception:  # noqa: BLE001 — the parent reads and raises it
-        out = {"error": traceback.format_exc()}
-    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
-        pickle.dump(out, f)
+    rank = group.rank()
+    reqs = list(np.load(reqs_file)["reqs"])
+    fitted = api.FittedPSVGP.load(artifact, device=device)
+    out: dict = {}
+    for pipeline in ("serial", "pipelined"):
+        server = api.Server(fitted, api.ServeConfig(mode="sharded", pipeline=pipeline),
+                            group=group)
+        server.submit(reqs[0])  # warm-up, not counted
+        server.reset_stats()
+        predict.reset_launches()
+        res: list = []
+        t0 = time.perf_counter()
+        rec = server.stream(reqs, warm=False, on_result=lambda i, r, res=res: res.append(r))
+        wall = time.perf_counter() - t0
+        out[pipeline] = {
+            "digest": _digest(res), "latency_ms": rec["latency_ms"], "wall_s": wall,
+            "mesh": server.stats()["mesh"], "launches": dict(predict.LAUNCHES),
+            "qmax": rec["qmax_policy"], "backend": server.backend,
+        }
+        if rank == 0:
+            out[pipeline]["results"] = res
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for q in reqs[:MESH_PROFILED]:
+            server.submit(q)
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out["profiler"] = {
+        "device_events": len(on_card),
+        "slots_kernels": sum("predict_kernel" in e.name or "predict_wide_kernel" in e.name
+                             for e in on_card),
+    }
+    out["cache_bytes"] = server.cache_bytes
+    out["cell"] = server.mesh.cell
+    return out
 
 
-def mesh_phase(torch, dev, card: str, report: dict, rank_fn=None) -> None:
-    """Phase 9: a 4 x 4 model (m 5, 150 steps) served by 16 spawned ranks
-    over gloo, all on ``dev``, each launching the slots kernel for its cell:
-    every answer bitwise the one-process halo program's, pipelined ==
-    serial, one slots launch a rank a request (wrapper and profiler),
-    per-rank cache bytes total / 16; p50 per request and the exchange's
-    share of it."""
-    import multiprocessing as mp
-    import pickle
-
+def mesh_inputs(torch, dev) -> dict:
+    """Phase 9's model and requests, and the one-process halo program's
+    answers and p50 (serial and pipelined): a 4 x 4 model (m 5, 150
+    steps) fitted on ``dev``, MESH_REQUESTS uniform 4,096-point requests."""
     from repro_torch import api
     from repro_torch.data.spatial import e3sm_like_field
-    from repro_torch.launch import serve_sharded as ss
 
-    world = MESH_SIDE * MESH_SIDE
     fitted = api.fit(api.FitConfig(grid=MESH_SIDE, m=5, train_iters=150, seed=0),
                      e3sm_like_field(n=1500, seed=0), device=dev)
     reqs = [_uniform(fitted.grid, 4096, 200 + i) for i in range(MESH_REQUESTS)]
@@ -1612,40 +1602,20 @@ def mesh_phase(torch, dev, card: str, report: dict, rank_fn=None) -> None:
         res: list = []
         rec = one.stream(reqs, warm=False, on_result=lambda i, r, res=res: res.append(r))
         want[pipeline] = (res, rec["latency_ms"])
-    with tempfile.TemporaryDirectory() as tmp:
-        artifact = fitted.save(os.path.join(tmp, "artifact"))
-        reqs_file = os.path.join(tmp, "reqs.npz")
-        np.savez(reqs_file, reqs=np.stack(reqs))
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=rank_fn or mesh_rank,
-                             args=(r, world, os.path.join(tmp, "store"), artifact, reqs_file, tmp,
-                                   str(dev)))
-                 for r in range(world)]
-        t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        try:
-            for p in procs:
-                p.join(MESH_JOIN_S)
-            alive = [r for r, p in enumerate(procs) if p.is_alive()]
-            check(not alive, f"mesh: ranks {alive} still running after {MESH_JOIN_S} s")
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join(10)
-        spawn_s = time.perf_counter() - t0
-        ranks = []
-        for r in range(world):
-            path = os.path.join(tmp, f"rank{r}.pkl")
-            check(os.path.exists(path), f"mesh: rank {r} wrote nothing (exit {procs[r].exitcode})")
-            with open(path, "rb") as f:
-                ranks.append(pickle.load(f))
-            check("error" not in ranks[r], f"mesh: rank {r} failed:\n{ranks[r].get('error')}")
-    check(all(p.exitcode == 0 for p in procs), f"mesh: exit codes {[p.exitcode for p in procs]}")
+    return {"fitted": fitted, "reqs": reqs, "want": want}
 
+
+def mesh_check(card: str, report: dict, ranks: list, inputs: dict, spawn_s: float) -> None:
+    """Phase 9's gates on what the 16 ranks saw: every answer bitwise the
+    one-process halo program's, pipelined == serial, one slots launch a
+    rank a request (wrapper and profiler), per-rank cache bytes total /
+    16; p50 per request and the exchange's share of it."""
+    from repro_torch.launch import serve_sharded as ss
+
+    world = len(ranks)
+    fitted, want = inputs["fitted"], inputs["want"]
     total, _ = ss.cache_memory_bytes(fitted.cache)
-    rec: dict = {"ranks": world, "requests": MESH_REQUESTS, "spawn_and_serve_s": spawn_s}
+    rec: dict = {"ranks": world, "requests": MESH_REQUESTS, "shared_spawn_s": spawn_s}
     for pipeline in ("serial", "pipelined"):
         got = ranks[0][pipeline]["results"]
         same = all(_equal(a, b) for a, b in zip(got, want[pipeline][0], strict=True))
@@ -1706,7 +1676,7 @@ def mesh_phase(torch, dev, card: str, report: dict, rank_fn=None) -> None:
               "launches by profiler not measured (the wrappers' counts stand)")
     rec["cache_bytes"] = [total, total // world]
     print(f"[mesh] [{card}] pipelined == serial; cache {total} B total, {total // world} B a rank "
-          f"(1/{world}); spawn + serve {spawn_s:.3f} s")
+          f"(1/{world}); the spawn phase 10 shares (serve + train) {spawn_s:.3f} s")
     report["mesh"] = rec
 
 
@@ -1719,7 +1689,6 @@ SPMD_N = 1944  # 48,602 x 16 / 400: a cell holds what a cell of the paper's 20 x
 SPMD_STEPS = 300
 SPMD_CHECKED = 5  # steps whose received batches are held to the one-process step's
 SPMD_PROFILED = 5
-SPMD_JOIN_S = 300
 
 
 def spmd_problem(dev):
@@ -1749,96 +1718,80 @@ def _flat_state(state) -> dict:
     return out
 
 
-def spmd_rank(rank: int, world: int, store: str, inputs: str, out_dir: str, device: str) -> None:
-    """One rank of phase 10 (a spawned process): the initial state's cell,
+def _spmd_train(group, inputs: str, device: str, marks: dict) -> dict:
+    """Phase 10 in one rank of the shared spawn: the initial state's cell,
     SPMD_STEPS steps of ``psvgp_spmd.make_spmd_step`` (the first
     SPMD_CHECKED through its two halves, their received batches kept),
     each timed on the host clock; the gathered state after 2 steps and
     at the end; then SPMD_PROFILED more steps, rank 0 under
-    torch.profiler."""
+    torch.profiler. ``marks`` gains wall-clock times the parent reads
+    against its spawn."""
     import contextlib
-    import pickle
-    import traceback
 
     import torch
 
-    torch.set_num_threads(1)
-    marks = {"imported": time.time()}  # wall clock: the parent reads them against its spawn
-    try:
-        import torch.distributed as dist
+    from repro_torch.core import psvgp
+    from repro_torch.core import psvgp_spmd as spmd
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import svgp_proj
+    from repro_torch.launch import serve_sharded as ss
 
-        from repro_torch.core import psvgp
-        from repro_torch.core import psvgp_spmd as spmd
-        from repro_torch.device import resolve_device
-        from repro_torch.kernels import svgp_proj
-        from repro_torch.launch import serve_sharded as ss
-
-        torch.backends.cuda.matmul.allow_tf32 = False
-        dev = resolve_device(device)
-        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
-                                world_size=world)
-        marks["joined"] = time.time()
-        try:
-            z = dict(np.load(inputs))
-            grid, data, static, _ = spmd_problem(dev)
-            mesh = ss.mesh_for_grid(grid, dist.group.WORLD)
-            step = spmd.make_spmd_step(mesh, mesh.axis_names, grid, static.cfg, static.cov_fn,
-                                       static.p_dir)
-            arrays = spmd.shard_data((data.x, data.y, data.mask, static.dist.probs,
-                                      static.dist.n_eff), mesh)
-            state = psvgp.state_from_numpy(z, dev)
-            state = spmd.shard_state(state, mesh)
-            marks["ready"] = time.time()
-            out: dict = {"batches": [], "step_ms": [], "marks": marks}
-            svgp_proj.reset_launches()
-            mesh.reset_stats()
-            for t in range(SPMD_STEPS):
-                t0 = time.perf_counter()
-                if t < SPMD_CHECKED:
-                    d, bx, by, bm = step.batch(state, 0, *arrays[:3])
-                    state, _loss = step.update(state, d, bx, by, bm, *arrays[3:])
-                    out["batches"].append((int(d), *(a.cpu().numpy() for a in (bx, by, bm))))
-                else:
-                    state, _loss = step(state, 0, *arrays)
-                out["step_ms"].append(1e3 * (time.perf_counter() - t0))
-                if t == 0:
-                    marks["first_step"] = time.time()
-                if t == 1:
-                    two = spmd.gather_state(state, mesh)
-                    if rank == 0:
-                        out["state_2"] = _flat_state(two)
-            out["wall_s"] = sum(out["step_ms"]) / 1e3
-            marks["trained"] = time.time()
-            out["launches"] = dict(svgp_proj.LAUNCHES)
-            out["mesh"] = mesh.stats()
-            out["reduce_s"] = step.reduce_s
-            final = spmd.gather_state(state, mesh)
+    rank = group.rank()
+    dev = resolve_device(device)
+    z = dict(np.load(inputs))
+    grid, data, static, _ = spmd_problem(dev)
+    mesh = ss.mesh_for_grid(grid, group)
+    step = spmd.make_spmd_step(mesh, mesh.axis_names, grid, static.cfg, static.cov_fn,
+                               static.p_dir)
+    arrays = spmd.shard_data((data.x, data.y, data.mask, static.dist.probs,
+                              static.dist.n_eff), mesh)
+    state = psvgp.state_from_numpy(z, dev)
+    state = spmd.shard_state(state, mesh)
+    marks["ready"] = time.time()
+    out: dict = {"batches": [], "step_ms": [], "marks": marks}
+    svgp_proj.reset_launches()
+    mesh.reset_stats()
+    for t in range(SPMD_STEPS):
+        t0 = time.perf_counter()
+        if t < SPMD_CHECKED:
+            d, bx, by, bm = step.batch(state, 0, *arrays[:3])
+            state, _loss = step.update(state, d, bx, by, bm, *arrays[3:])
+            out["batches"].append((int(d), *(a.cpu().numpy() for a in (bx, by, bm))))
+        else:
+            state, _loss = step(state, 0, *arrays)
+        out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        if t == 0:
+            marks["first_step"] = time.time()
+        if t == 1:
+            two = spmd.gather_state(state, mesh)
             if rank == 0:
-                out["state_end"] = _flat_state(final)
-            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-            with (torch.profiler.profile(activities=acts) if rank == 0
-                  else contextlib.nullcontext()) as prof:
-                t0 = time.perf_counter()
-                for _ in range(SPMD_PROFILED):
-                    state, _loss = step(state, 0, *arrays)
-                window_us = 1e6 * (time.perf_counter() - t0)
-            if prof is not None:
-                on_card = [e for e in prof.events()
-                           if e.device_type == torch.autograd.DeviceType.CUDA]
-                busy_us, per_name = device_busy(torch, prof, SPMD_PROFILED)
-                out["profiler"] = {
-                    "device_events": len(on_card), "busy_us": busy_us, "window_us": window_us,
-                    "projection_kernels": sum("projection" in e.name for e in on_card),
-                    "per_name": per_name,
-                }
-            marks["done"] = time.time()
-            dist.barrier()
-        finally:
-            dist.destroy_process_group()
-    except Exception:  # noqa: BLE001 — the parent reads and raises it
-        out = {"error": traceback.format_exc()}
-    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
-        pickle.dump(out, f)
+                out["state_2"] = _flat_state(two)
+    out["wall_s"] = sum(out["step_ms"]) / 1e3
+    marks["trained"] = time.time()
+    out["launches"] = dict(svgp_proj.LAUNCHES)
+    out["mesh"] = mesh.stats()
+    out["reduce_s"] = step.reduce_s
+    final = spmd.gather_state(state, mesh)
+    if rank == 0:
+        out["state_end"] = _flat_state(final)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with (torch.profiler.profile(activities=acts) if rank == 0
+          else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SPMD_PROFILED):
+            state, _loss = step(state, 0, *arrays)
+        window_us = 1e6 * (time.perf_counter() - t0)
+    if prof is not None:
+        on_card = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us, per_name = device_busy(torch, prof, SPMD_PROFILED)
+        out["profiler"] = {
+            "device_events": len(on_card), "busy_us": busy_us, "window_us": window_us,
+            "projection_kernels": sum("projection" in e.name for e in on_card),
+            "per_name": per_name,
+        }
+    marks["done"] = time.time()
+    return out
 
 
 def batch_invariance(torch, static, state, data) -> dict:
@@ -1891,22 +1844,14 @@ def batch_invariance(torch, static, state, data) -> dict:
     return out
 
 
-def spmd_phase(torch, dev, card: str, report: dict, rank_fn=None) -> None:
-    """Phase 10: SPMD training on 16 spawned ranks over gloo, all on
-    ``dev``, one cell each (the paper's width, 300 steps): one projection
-    launch a rank a step (wrapper; torch.profiler on rank 0), one hop a
-    step where d != 0, the received batches bitwise the one-process
-    step's, the gathered state against the one-process eager
-    ``psvgp.fit(comm="ppermute")`` from the same init and seed — bitwise,
-    or, where a library op rounds a cell differently alone, within 2e-4
-    after 2 steps with RMSPE and boundary RMSD within 10%."""
-    import multiprocessing as mp
-    import pickle
-
-    from repro_torch.core import metrics, neighbors, psvgp, sampler
+def spmd_inputs(torch, dev) -> dict:
+    """Phase 10's problem and the one-process references on ``dev``: the
+    eager fit of SPMD_STEPS steps (its projection launches) and of 2, the
+    one-process step's p50 over 50 steps, every step's direction and the
+    first SPMD_CHECKED steps' batches."""
+    from repro_torch.core import psvgp, sampler
     from repro_torch.kernels import svgp_proj
 
-    world = SPMD_SIDE * SPMD_SIDE
     grid, data, static, state0 = spmd_problem(dev)
     svgp_proj.reset_launches()
     one = psvgp.fit(static, state0, data, SPMD_STEPS)
@@ -1925,36 +1870,27 @@ def spmd_phase(torch, dev, card: str, report: dict, rank_fn=None) -> None:
         [a.cpu().numpy() for a in psvgp.ppermute_batch(0, t, data.x, data.y, data.mask,
                                                         static.perms, static.p_dir, 32)]
         for t in range(SPMD_CHECKED)]
-    with tempfile.TemporaryDirectory() as tmp:
-        inputs = os.path.join(tmp, "inputs.npz")
-        np.savez(inputs, **_flat_state(state0))
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=rank_fn or spmd_rank,
-                             args=(r, world, os.path.join(tmp, "store"), inputs, tmp, str(dev)))
-                 for r in range(world)]
-        t0, spawned = time.perf_counter(), time.time()
-        for p in procs:
-            p.start()
-        try:
-            for p in procs:
-                p.join(SPMD_JOIN_S)
-            alive = [r for r, p in enumerate(procs) if p.is_alive()]
-            check(not alive, f"spmd: ranks {alive} still running after {SPMD_JOIN_S} s")
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join(10)
-        spawn_s = time.perf_counter() - t0
-        ranks = []
-        for r in range(world):
-            path = os.path.join(tmp, f"rank{r}.pkl")
-            check(os.path.exists(path), f"spmd: rank {r} wrote nothing (exit {procs[r].exitcode})")
-            with open(path, "rb") as f:
-                ranks.append(pickle.load(f))
-            check("error" not in ranks[r], f"spmd: rank {r} failed:\n{ranks[r].get('error')}")
-    check(all(p.exitcode == 0 for p in procs), f"spmd: exit codes {[p.exitcode for p in procs]}")
+    return {"grid": grid, "data": data, "static": static, "state0": state0, "one": one,
+            "one_launches": one_launches, "two": two, "step_ms": step_ms, "dirs": dirs,
+            "want_batches": want_batches}
 
+
+def spmd_check(torch, dev, card: str, report: dict, ranks: list, inputs: dict,
+               spawn_s: float, spawned: float) -> None:
+    """Phase 10's gates on what the 16 ranks trained: one projection
+    launch a rank a step (wrapper; torch.profiler on rank 0), one hop a
+    step where d != 0, the received batches bitwise the one-process
+    step's, the gathered state against the one-process eager
+    ``psvgp.fit(comm="ppermute")`` from the same init and seed — bitwise,
+    or, where a library op rounds a cell differently alone, within 2e-4
+    after 2 steps with RMSPE and boundary RMSD within 10%."""
+    from repro_torch.core import metrics, neighbors, psvgp
+
+    world = len(ranks)
+    grid, data, static = inputs["grid"], inputs["data"], inputs["static"]
+    one, two, dirs = inputs["one"], inputs["two"], inputs["dirs"]
+    one_launches, step_ms = inputs["one_launches"], inputs["step_ms"]
+    want_batches = inputs["want_batches"]
     # counts: one projection launch a rank a step, one hop a step where d != 0
     hops = sum(d != 0 for d in dirs)
     for r, rk in enumerate(ranks):
@@ -2024,7 +1960,7 @@ def spmd_phase(torch, dev, card: str, report: dict, rank_fn=None) -> None:
     rec = {"ranks": world, "steps": SPMD_STEPS, "hops": hops, "bitwise": bitwise,
            "max_abs_diff_end": max(end.values()), "max_abs_diff_params_end": params_end,
            "max_abs_diff_params_2": params_2,
-           "batch_invariant": invariant, "quality": quality, "spawn_and_train_s": spawn_s,
+           "batch_invariant": invariant, "quality": quality, "shared_spawn_s": spawn_s,
            "step_p50_ms_ranks": [min(p50), max(p50)], "step_p95_ms_ranks": [min(p95), max(p95)],
            "step_p50_ms_rank0": p50[0], "step_p95_ms_rank0": p95[0],
            "exchange_share_ranks": [min(ex), max(ex)],
@@ -2034,8 +1970,8 @@ def spmd_phase(torch, dev, card: str, report: dict, rank_fn=None) -> None:
           f"{min(p50):.4f}-{max(p50):.4f}, p95 {min(p95):.4f}-{max(p95):.4f}) on the host clock; "
           f"the exchange {min(ex):.4f}-{max(ex):.4f} and the loss all-reduce {min(red):.4f}-"
           f"{max(red):.4f} of a rank's wall time (each includes the wait for the slowest); the "
-          f"one-process step p50 {rec['one_process_step_p50_ms']:.4f} ms; spawn + train "
-          f"{spawn_s:.3f} s")
+          f"one-process step p50 {rec['one_process_step_p50_ms']:.4f} ms; the spawn phase 9 "
+          f"shares (serve + train) {spawn_s:.3f} s")
     # where the spawn's seconds go: the last rank to reach each mark
     marks = {k: max(rk["marks"][k] for rk in ranks) - spawned for k in ranks[0]["marks"]}
     rec["rank_marks_s"] = marks
@@ -2060,6 +1996,103 @@ def spmd_phase(torch, dev, card: str, report: dict, rank_fn=None) -> None:
         print(f"[spmd] [{card}] torch.profiler saw no device activity on rank 0: the busy share "
               "and the launches by profiler not measured (the wrapper's counts stand)")
     report["spmd"] = rec
+
+
+MESH_SPMD_JOIN_S = 600
+
+
+def mesh_spmd_rank(rank: int, world: int, store: str, artifact: str, reqs_file: str,
+                   inputs: str, out_dir: str, device: str) -> None:
+    """One rank of phases 9 and 10 (a spawned process): ONE gloo process
+    group, phase 9's serving on it (``_mesh_serve``), then phase 10's
+    training (``_spmd_train``); what it saw goes to ``out_dir``."""
+    import pickle
+    import traceback
+
+    import torch
+
+    torch.set_num_threads(1)
+    marks = {"imported": time.time()}  # wall clock: the parent reads them against its spawn
+    try:
+        import torch.distributed as dist
+
+        from repro_torch.launch import serve_sharded as ss
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                                world_size=world)
+        marks["joined"] = time.time()
+        try:
+            out = {"mesh": _mesh_serve(dist.group.WORLD, artifact, reqs_file, device)}
+            marks["served"] = time.time()
+            out["spmd"] = _spmd_train(dist.group.WORLD, inputs, device, marks)
+        finally:
+            ss.close_mesh_group(dist.group.WORLD)
+    except Exception:  # noqa: BLE001 — the parent reads and raises it
+        out = {"error": traceback.format_exc()}
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def mesh_spmd_phase(torch, dev, card: str, report: dict, rank_fn=None) -> None:
+    """Phases 9 and 10 on ONE spawn of 16 ranks over gloo, all on ``dev``,
+    one cell each: every rank serves phase 9's requests on the halo mesh,
+    then trains phase 10's SPMD steps (``mesh_spmd_rank``); the parent
+    prepares both phases' inputs and references first and holds the ranks
+    to them after (``mesh_check``, ``spmd_check``)."""
+    import multiprocessing as mp
+    import pickle
+
+    world = MESH_SIDE * MESH_SIDE
+    check(SPMD_SIDE * SPMD_SIDE == world, "phases 9 and 10 need one world size")
+    t0 = time.perf_counter()
+    mesh_in = mesh_inputs(torch, dev)
+    spmd_in = spmd_inputs(torch, dev)
+    prepare_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        artifact = mesh_in["fitted"].save(os.path.join(tmp, "artifact"))
+        reqs_file = os.path.join(tmp, "reqs.npz")
+        np.savez(reqs_file, reqs=np.stack(mesh_in["reqs"]))
+        inputs = os.path.join(tmp, "inputs.npz")
+        np.savez(inputs, **_flat_state(spmd_in["state0"]))
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=rank_fn or mesh_spmd_rank,
+                             args=(r, world, os.path.join(tmp, "store"), artifact, reqs_file,
+                                   inputs, tmp, str(dev)))
+                 for r in range(world)]
+        t0, spawned = time.perf_counter(), time.time()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(MESH_SPMD_JOIN_S)
+            alive = [r for r, p in enumerate(procs) if p.is_alive()]
+            check(not alive, f"mesh/spmd: ranks {alive} still running after "
+                             f"{MESH_SPMD_JOIN_S} s")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            path = os.path.join(tmp, f"rank{r}.pkl")
+            check(os.path.exists(path), f"mesh/spmd: rank {r} wrote nothing "
+                                        f"(exit {procs[r].exitcode})")
+            with open(path, "rb") as f:
+                ranks.append(pickle.load(f))
+            check("error" not in ranks[r], f"mesh/spmd: rank {r} failed:\n"
+                                           f"{ranks[r].get('error')}")
+    check(all(p.exitcode == 0 for p in procs),
+          f"mesh/spmd: exit codes {[p.exitcode for p in procs]}")
+    print(f"[mesh] [{card}] phases 9 and 10 share one spawn of {world} ranks: inputs and "
+          f"one-process references {prepare_s:.3f} s, the spawn (serve, then train) "
+          f"{spawn_s:.3f} s")
+    mesh_check(card, report, [rk["mesh"] for rk in ranks], mesh_in, spawn_s)
+    spmd_check(torch, dev, card, report, [rk["spmd"] for rk in ranks], spmd_in, spawn_s,
+               spawned)
+    report["mesh"]["prepare_s"] = report["spmd"]["prepare_s"] = prepare_s
 
 
 # --------------------------------------------------------------------------
@@ -2237,24 +2270,27 @@ def lm_flops_per_token(cfg, seq: int) -> float:
     return 6.0 * matmul + 12.0 * cfg.num_layers * cfg.num_heads * hd * seq
 
 
-def _lm_cache_gap(torch, params, cfg, tokens) -> tuple[float, object]:
+def _lm_cache_gap(torch, params, cfg, tokens, patches=None) -> tuple[float, object]:
     """max |logits| gap of prefill(S) + LM_CHECKED decode steps (positions
-    S - 1 .. S + LM_CHECKED - 1) against one uncached forward over the
-    S + LM_CHECKED tokens (unmasked logits), and that forward's logits at
-    those positions."""
+    S - 1 .. S + LM_CHECKED - 1 after a VLM's P prepended patches) against
+    one uncached forward over the S + LM_CHECKED tokens (unmasked logits),
+    and that forward's logits at those positions."""
     from repro_torch.models.transformer import forward
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
 
     S = tokens.shape[1] - LM_CHECKED
-    last, cache = make_prefill_step(cfg, cache_len=S + LM_CHECKED)(params, tokens[:, :S])
+    P = patches.shape[1] if patches is not None else 0
+    last, cache = make_prefill_step(cfg, cache_len=P + S + LM_CHECKED)(
+        params, tokens[:, :S], patches)
     decode = make_decode_step(cfg)
     got = [last]
     for i in range(LM_CHECKED):
-        lg, cache = decode(params, cache, S + i, tokens[:, S + i:S + i + 1])
+        lg, cache = decode(params, cache, P + S + i, tokens[:, S + i:S + i + 1])
         got.append(lg)
+    del cache
     with torch.no_grad():
-        full, _, _ = forward(params, cfg, tokens)
-    want = full[:, S - 1:]
+        full, _, _ = forward(params, cfg, tokens, patches=patches)
+    want = full[:, P + S - 1:]
     ok = want > -1e29
     gap = float((torch.stack(got, 1) - want)[ok].abs().max())
     return gap, want
@@ -2620,10 +2656,11 @@ def moe_spmd_check(dev, card: str, seed: int, rank_fn=None) -> dict:
     return rec
 
 
-def _p13_serve(torch, dev, card: str, cfg, params, seed: int, rec: dict) -> None:
+def _p13_serve(torch, dev, card: str, cfg, params, seed: int, rec: dict,
+               tag: str = "moe-mla") -> None:
     """The cache gates, the dropped share, serve times and the host share
-    of a decode step, for one model."""
-    from repro_torch.launch.serve import generate, lm_prompts
+    of a decode step, for one model (a VLM's seeded patches prepended)."""
+    from repro_torch.launch.serve import generate, lm_request
     from repro_torch.models import moe
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
 
@@ -2632,10 +2669,16 @@ def _p13_serve(torch, dev, card: str, cfg, params, seed: int, rec: dict) -> None
     # no group can overflow (a capacity drop differs by design between a
     # T-token prefill and a 1-token decode step)
     gate_cfg = raised_capacity(cfg)
-    tokens = torch.from_numpy(lm_prompts(cfg, P13_BATCH, P13_PROMPT + LM_CHECKED, seed)).to(dev)
+    tokens, patches = lm_request(cfg, P13_BATCH, P13_PROMPT + LM_CHECKED, seed)
+    tokens = torch.from_numpy(tokens).to(dev)
+    P = 0
+    if patches is not None:
+        patches = torch.from_numpy(patches).to(dev)
+        P = patches.shape[1]
+        rec["patches"] = list(patches.shape)
     gap32, full32 = _lm_cache_gap(torch, params, dataclasses.replace(gate_cfg, dtype="float32"),
-                                  tokens)
-    gap16, full16 = _lm_cache_gap(torch, params, gate_cfg, tokens)
+                                  tokens, patches)
+    gap16, full16 = _lm_cache_gap(torch, params, gate_cfg, tokens, patches)
     ok = full32 > -1e29
     noise = float((full16 - full32)[ok].abs().max())
     scale = float(full32[ok].abs().max())
@@ -2644,8 +2687,10 @@ def _p13_serve(torch, dev, card: str, cfg, params, seed: int, rec: dict) -> None
     rec.update(cache_gap_fp32=gap32, cache_gap_bf16=gap16, bf16_vs_fp32_forward=noise,
                logits_scale=scale, cache_capacity_factor=(gate_cfg.moe.capacity_factor
                                                            if cfg.moe else None))
-    print(f"[moe-mla] [{card}] {name}: prefill({P13_PROMPT}) + {LM_CHECKED} decode steps vs the "
+    print(f"[{tag}] [{card}] {name}: prefill({P13_PROMPT}) + {LM_CHECKED} decode steps vs the "
           f"uncached forward, batch {P13_BATCH}"
+          + (f", {P} patches x {patches.shape[2]} prepended (cache {P} + {P13_PROMPT} + "
+             f"{LM_CHECKED} positions)" if P else "")
           + (f", capacity raised to E/K = {gate_cfg.moe.capacity_factor:.4f}" if cfg.moe else "")
           + f": fp32 max|d logits| {gap32:.3e} (bound {LM_FP32_ATOL} x max(1, {scale:.3f})); "
           f"bf16 {gap16:.3e} (bound {LM_BF16_FACTOR} x {noise:.3e}, the bf16 forward's gap to "
@@ -2665,9 +2710,9 @@ def _p13_serve(torch, dev, card: str, cfg, params, seed: int, rec: dict) -> None
               f"{cfg.moe.capacity_factor}: {total - kept:.0f} of {total} (token, expert) "
               f"assignments dropped over {len(log)} MoE layers (share "
               f"{rec['prefill_dropped_share']:.4f})")
-    first = generate(params, cfg, prompts, P13_GEN, temperature=0.0)
+    first = generate(params, cfg, prompts, P13_GEN, temperature=0.0, patches=patches)
     torch.cuda.reset_peak_memory_stats()
-    out = generate(params, cfg, prompts, P13_GEN, temperature=0.0)
+    out = generate(params, cfg, prompts, P13_GEN, temperature=0.0, patches=patches)
     rec["serve_peak_bytes"] = torch.cuda.max_memory_allocated()
     toks = out["tokens"]
     check(tuple(toks.shape) == (P13_BATCH, P13_GEN) and bool((toks >= 0).all())
@@ -2677,16 +2722,17 @@ def _p13_serve(torch, dev, card: str, cfg, params, seed: int, rec: dict) -> None
                decode_ms_per_step=1e3 * dec_s / (P13_GEN - 1),
                decode_tok_s=P13_BATCH * (P13_GEN - 1) / dec_s,
                greedy_repeat_equal=bool(torch.equal(first["tokens"], toks)))
-    _, cache = make_prefill_step(cfg, cache_len=P13_PROMPT + P13_GEN)(params, prompts)
+    _, cache = make_prefill_step(cfg, cache_len=P + P13_PROMPT + P13_GEN)(params, prompts,
+                                                                            patches)
     decode = make_decode_step(cfg)
     tok = toks[:, :1]
-    decode(params, cache, P13_PROMPT, tok)
+    decode(params, cache, P + P13_PROMPT, tok)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(LM_PROFILED):
-            decode(params, cache, P13_PROMPT + 1 + i, tok)
+            decode(params, cache, P + P13_PROMPT + 1 + i, tok)
         torch.cuda.synchronize()
         window_us = 1e6 * (time.perf_counter() - t0)
     busy_us, _ = device_busy(torch, prof, LM_PROFILED)
@@ -2694,14 +2740,15 @@ def _p13_serve(torch, dev, card: str, cfg, params, seed: int, rec: dict) -> None
     rec["decode_host_share"] = 1.0 - busy_us / window_us if busy_us > 0 else None
     share = ("not measured (torch.profiler saw no device activity)"
              if rec["decode_host_share"] is None else f"{rec['decode_host_share']:.4f}")
-    print(f"[moe-mla] [{card}] {name}: serve (launch.serve.generate, bf16, greedy, second run) "
-          f"prefill {P13_BATCH}x{P13_PROMPT} in {rec['prefill_ms']:.3f} ms "
-          f"({rec['prefill_tok_s']:.1f} tok/s); decode {rec['decode_ms_per_step']:.3f} ms a step "
-          f"x {P13_GEN - 1} ({rec['decode_tok_s']:.1f} tok/s); decode host share {share} "
+    print(f"[{tag}] [{card}] {name}: serve (launch.serve.generate, bf16, greedy, second run) "
+          f"prefill {P13_BATCH}x{P13_PROMPT}" + (f" after {P} patches" if P else "")
+          + f" in {rec['prefill_ms']:.3f} ms ({rec['prefill_tok_s']:.1f} tok/s); decode "
+          f"{rec['decode_ms_per_step']:.3f} ms a step x {P13_GEN - 1} ({rec['decode_tok_s']:.1f} tok/s); decode host share {share} "
           f"(torch.profiler, {LM_PROFILED} steps); peak CUDA memory {rec['serve_peak_bytes']:,} B")
 
 
-def _p13_train(torch, dev, card: str, cfg, holder: list, seed: int, rec: dict) -> None:
+def _p13_train(torch, dev, card: str, cfg, holder: list, seed: int, rec: dict,
+               tag: str = "moe-mla") -> None:
     """8 AdamW steps on one batch (the loss falls), then P13_TIMED_STEPS
     timed on CUDA events, remat on. ``holder`` hands over the parameters
     (a list of one tree, emptied here, so that no caller keeps them)."""
@@ -2761,7 +2808,7 @@ def _p13_train(torch, dev, card: str, cfg, holder: list, seed: int, rec: dict) -
     rec.update(train_ms=_pct(ms), train_tok_s=P13_TRAIN_BATCH * P13_TRAIN_SEQ / (p50 / 1e3),
                train_peak_bytes=torch.cuda.max_memory_allocated(), train_losses=tl)
     del state, batch
-    print(f"[moe-mla] [{card}] {name}: train (AdamW lr {P13_TRAIN_LR}, remat, bf16, "
+    print(f"[{tag}] [{card}] {name}: train (AdamW lr {P13_TRAIN_LR}, remat, bf16, "
           f"{P13_TRAIN_BATCH}x{P13_TRAIN_SEQ}): {P13_OVERFIT_STEPS} steps on one batch, losses "
           + ", ".join(f"{v:.4f}" for v in losses)
           + (f" (aux {rec['overfit_aux'][0]:.4f} .. {rec['overfit_aux'][-1]:.4f}; the same step "
@@ -2773,9 +2820,10 @@ def _p13_train(torch, dev, card: str, cfg, holder: list, seed: int, rec: dict) -
 
 def p13_cli_commands() -> list:
     """(label, argv after the interpreter): launch.serve --arch and
-    launch.train --arch at --smoke for each of phase 13's architectures."""
+    launch.train --arch at --smoke for each of phase 13's and phase 14's
+    architectures (one concurrent batch, run in phase 13)."""
     cmds = []
-    for arch, *_ in P13_MODELS:
+    for arch in [a for a, *_ in P13_MODELS] + list(P14_ARCHS):
         cmds.append((f"serve --arch {arch} --smoke",
                      ["-m", "repro_torch.launch.serve", "--arch", arch, "--smoke", "--gen", "8",
                       "--temperature", "0"]))
@@ -2877,6 +2925,74 @@ def moe_mla_phase(torch, dev, card: str, report: dict, seed: int) -> None:
     print(f"[moe-mla] [{card}] phase 13: {out['phase_s']:.3f} s")
 
 
+# --------------------------------------------------------------------------
+# 14. xLSTM and the vision stub at the published width: xlstm-350m uncut,
+#     internvl2-76b served at 4 of its 80 layers
+# --------------------------------------------------------------------------
+
+# jax.eval_shape(transformer.init_model_params) over repro.configs.get
+P14_ARCHS = ("xlstm-350m", "internvl2-76b")
+P14_XLSTM_PARAMS = 590_423_200
+P14_VLM_LAYERS = 4
+P14_VLM_PARAMS = 5_617_295_360
+# internvl2-76b is not trained on the card at its published width: 1 layer
+# is 3,050,332,160 parameters, and the functional AdamW's step holds ~30 B
+# a parameter (deepseek-moe-16b's 2.27 B peaked at 68.6 GB), ~92 GB
+
+
+def xlstm_vlm_phase(torch, dev, card: str, report: dict, seed: int) -> None:
+    """Phase 14: xlstm-350m uncut (24 layers, 5 mLSTM : 1 sLSTM) and
+    internvl2-76b at 4 of 80 layers (``dataclasses.replace(cfg,
+    num_layers=4)``), random from ``seed`` on the card. Gates: the
+    parameter counts; prefill(128) + 8 decode steps against the uncached
+    forward, batch 4, in fp32 (LM_FP32_ATOL x max(1, max|logits|)) and
+    bf16 (LM_BF16_FACTOR x the bf16 forward's gap to fp32), internvl2's
+    with 256 seeded 3,200-wide patches prepended; xlstm-350m's 8 AdamW
+    steps on one 8 x 256 batch falling. Prints serve times and the decode
+    step's host share, xlstm-350m's train ms p50 on CUDA events and peak
+    CUDA memory. The two architectures' CLIs at --smoke run in phase 13's
+    concurrent batch (``p13_cli_commands``)."""
+    from repro_torch.configs import get
+    from repro_torch.models.transformer import init_model_params
+    from repro_torch.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    out: dict = {"models": {}}
+    for arch, layers, want, train in (("xlstm-350m", None, P14_XLSTM_PARAMS, True),
+                                      ("internvl2-76b", P14_VLM_LAYERS, P14_VLM_PARAMS, False)):
+        full = get(arch)
+        cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+        rec: dict = {"published_layers": full.num_layers, "layers": cfg.num_layers,
+                     "dtype": cfg.dtype}
+        t0 = time.perf_counter()
+        params = init_model_params(torch.Generator(dev).manual_seed(seed), cfg)
+        torch.cuda.synchronize()
+        got = sum(a.numel() for a in tree_leaves(params))
+        rec["parameters"] = got
+        check(got == want, f"{arch}: {got} parameters at depth {cfg.num_layers}, not {want}")
+        cut = "uncut" if layers is None else \
+            f"cut from {full.num_layers} layers (dataclasses.replace(cfg, num_layers={layers}))"
+        print(f"[xlstm-vlm] [{card}] {arch} at depth {cfg.num_layers}, {cut}: {got:,} parameters "
+              f"initialised on the card in {time.perf_counter() - t0:.3f} s (seed {seed})")
+        _p13_serve(torch, dev, card, cfg, params, seed, rec, tag="xlstm-vlm")
+        if train:
+            holder = [params]
+            del params  # the training state takes them over
+            _p13_train(torch, dev, card, cfg, holder, seed, rec, tag="xlstm-vlm")
+        else:
+            del params
+            rec["trained_on_the_card"] = False
+            print(f"[xlstm-vlm] [{card}] {arch}: not trained on the card at the published width "
+                  "(one layer is 3,050,332,160 parameters, ~92 GB for the functional AdamW "
+                  "step); its training is held to JAX's on the CPU and runs here at --smoke "
+                  "through launch.train")
+        torch.cuda.empty_cache()
+        out["models"][arch] = rec
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["xlstm_vlm"] = out
+    print(f"[xlstm-vlm] [{card}] phase 14: {out['phase_s']:.3f} s")
+
+
 def run(report: dict, seed: int = 0) -> None:
     import torch
 
@@ -2889,6 +3005,15 @@ def run(report: dict, seed: int = 0) -> None:
     dev = torch.device("cuda")
     card = card_line()
     report["card"] = card
+    seconds: dict = {}
+    mark = [time.perf_counter()]
+
+    def phase_done(label: str) -> None:
+        now = time.perf_counter()
+        seconds[label] = now - mark[0]
+        mark[0] = now
+        print(f"[phases] {label}: {seconds[label]:.3f} s")
+
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2904,6 +3029,8 @@ def run(report: dict, seed: int = 0) -> None:
                        for k, (r, sp) in report["ptxas"].items() if k.startswith(family + "<"))
         print(f"[build] {family}<MMAX,KD,...> registers (+spill bytes): "
               + ", ".join(f"{args} {r}" + (f"+{sp}" if sp else "") for args, r, sp in insts))
+
+    phase_done("1-2 card and build")
 
     # -- 3. kernels against their plain versions ---------------------------
     fitted = api.FittedPSVGP.load(FIXTURE, device=dev)
@@ -3001,6 +3128,8 @@ def run(report: dict, seed: int = 0) -> None:
     x_train = partition.partition_data(ds.x, ds.y, grid, device=dev).x[:, :32].contiguous()
     check_training_kernels(torch, dev, fitted, x_train, errors)
 
+    phase_done("3 kernels")
+
     # -- 4. the slice: a JAX-trained artifact served on the card ------------
     mean_scale, var_scale = blend_error_scales(cache, grid, queries)
 
@@ -3077,6 +3206,8 @@ def run(report: dict, seed: int = 0) -> None:
     rep_m, rep_v = fitted.predict(queries)
     vs_jax("replicated", rep_m.cpu().numpy(), rep_v.cpu().numpy(), "replicated")
 
+    phase_done("4 serving")
+
     # -- 5. training on the card ----------------------------------------------
     trained = train_slice(torch, dev, card, report, ds)
     scan_slice(torch, dev, card, report, trained, ds)
@@ -3087,6 +3218,8 @@ def run(report: dict, seed: int = 0) -> None:
     print(f"[kernels] ops.rbf_cross_cov (the one entry that reaches it, as in the JAX "
           f"package): launches {report['launches_rbf_path']}")
     check(report["launches_rbf_path"]["rbf_cross_cov"] == 1, "ops.rbf_cross_cov did not launch")
+
+    phase_done("5 training")
 
     # -- 6. times ------------------------------------------------------------
     # the launch floor: the least device time of any launch through the
@@ -3190,20 +3323,33 @@ def run(report: dict, seed: int = 0) -> None:
                   "(torch.profiler saw no device activity)")
     rows += training_times(torch, dev, card, cache, x_train, trained, ds, report)
 
+    phase_done("6 times")
+
     # -- 7. the in-situ lifecycle and its front doors (after the times, so
     # that they are taken in the process state of the earlier slices) -----
     lifecycle_slice(torch, dev, card, report, trained, ds)
 
-    # -- 8. the entry points and examples; 9. the halo mesh; 10. SPMD training
+    phase_done("7 lifecycle")
+    # -- 8. the entry points and examples
     entry_points_phase(card, report)
-    mesh_phase(torch, dev, card, report)
-    spmd_phase(torch, dev, card, report)
+    phase_done("8 entry")
+    # -- 9. the halo mesh and 10. SPMD training, on one spawn of 16 ranks
+    mesh_spmd_phase(torch, dev, card, report)
+    phase_done("9-10 mesh and spmd (one spawn)")
     # -- 11. the analysis package's program passes on the card
     analysis_phase(card, report)
+    phase_done("11 analysis")
     # -- 12. the dense LM substrate at full width
     lm_phase(torch, dev, card, report, seed)
-    # -- 13. MoE and MLA at the published width
+    phase_done("12 lm")
+    # -- 13. MoE and MLA at the published width (and the LM CLIs of 13 and 14)
     moe_mla_phase(torch, dev, card, report, seed)
+    phase_done("13 moe-mla")
+    # -- 14. xLSTM and the vision stub at the published width
+    xlstm_vlm_phase(torch, dev, card, report, seed)
+    phase_done("14 xlstm-vlm")
+    report["phase_s"] = seconds
+    print(f"[phases] all: {sum(seconds.values()):.3f} s")
     report["times"] = [
         {"name": n, "shape": list(s), "label": lab, "ms": k, "plain_ms": p,
          "bound_ms": b, "bound_by": by, "floor_ms": report["floor_ms"]}

@@ -74,29 +74,43 @@ def _sync(device) -> None:
 def lm_prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
     """The JAX CLI's prompts: (batch, prompt_len) int32 from
     ``default_rng(seed)``."""
+    return lm_request(cfg, batch, prompt_len, seed)[0]
+
+
+def lm_request(cfg, batch: int, prompt_len: int, seed: int):
+    """The JAX CLI's inputs from one ``default_rng(seed)``: the prompts,
+    then, for a VLM, the stub patch embeddings (batch, num_patches,
+    vit_dim) float32 drawn after them (None otherwise)."""
     rng = np.random.default_rng(seed)
-    return rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+    patches = None
+    if cfg.vision is not None:
+        v = cfg.vision
+        patches = rng.normal(size=(batch, v.num_patches, v.vit_dim)).astype(np.float32)
+    return prompts, patches
 
 
 def generate(params, cfg, prompts, gen: int, *, temperature: float = 0.0,
-             generator=None) -> dict:
-    """Prefill ``prompts`` (B, S) on their device, then ``gen - 1`` decode
-    steps: the first token greedy, as the JAX CLI's, the rest greedy at
-    ``temperature`` 0, else sampled with ``generator``. Returns the (B,
-    gen) tokens, the last step's logits and both phases' seconds, each
-    timed to a synchronize."""
+             generator=None, patches=None) -> dict:
+    """Prefill ``prompts`` (B, S) on their device (a VLM's ``patches``
+    prepended: the cache and the decode positions count them), then
+    ``gen - 1`` decode steps: the first token greedy, as the JAX CLI's,
+    the rest greedy at ``temperature`` 0, else sampled with
+    ``generator``. Returns the (B, gen) tokens, the last step's logits and
+    both phases' seconds, each timed to a synchronize."""
     import torch
 
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
 
     B, S = prompts.shape
     dev = prompts.device
-    prefill = make_prefill_step(cfg, cache_len=S + gen)
+    P = patches.shape[1] if patches is not None else 0
+    prefill = make_prefill_step(cfg, cache_len=S + gen + P)
     decode = make_decode_step(cfg)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, prompts)
+    logits, cache = prefill(params, prompts, patches)
     tok = torch.argmax(logits, dim=-1)[:, None]
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -104,7 +118,7 @@ def generate(params, cfg, prompts, gen: int, *, temperature: float = 0.0,
     generated = [tok]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, cache = decode(params, cache, S + i, tok)
+        logits, cache = decode(params, cache, P + S + i, tok)
         if temperature > 0:
             probs = torch.softmax(logits / temperature, dim=-1)
             tok = torch.multinomial(probs, 1, generator=generator)
@@ -130,10 +144,16 @@ def serve_lm(args) -> None:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_model_params(gen, cfg)
     B, S = args.batch, args.prompt_len
-    prompts = torch.from_numpy(lm_prompts(cfg, B, S, args.seed)).to(dev)
-    out = generate(params, cfg, prompts, args.gen, temperature=args.temperature, generator=gen)
+    prompts, patches = lm_request(cfg, B, S, args.seed)
+    prompts = torch.from_numpy(prompts).to(dev)
+    if patches is not None:
+        patches = torch.from_numpy(patches).to(dev)
+    out = generate(params, cfg, prompts, args.gen, temperature=args.temperature, generator=gen,
+                   patches=patches)
     t_prefill, t_dec = out["prefill_s"], out["decode_s"]
     print(f"arch={cfg.name} device={dev} dtype={cfg.dtype}")
+    if patches is not None:
+        print(f"patches: {B}x{patches.shape[1]} x {patches.shape[2]} prepended")
     print(f"prefill: {B}x{S} tokens in {t_prefill * 1e3:.1f} ms "
           f"({B * S / t_prefill:,.0f} tok/s)")
     print(f"decode: {args.gen} steps x {B} seqs in {t_dec * 1e3:.1f} ms "

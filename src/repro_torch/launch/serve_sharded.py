@@ -765,9 +765,25 @@ def serve_sharded(args) -> dict:
         return _serve_sharded(args, fit_cfg, serve_cfg, group)
     finally:
         if group is not None:
-            import torch.distributed as dist
+            close_mesh_group(group)
 
-            dist.destroy_process_group()
+
+def close_mesh_group(group) -> None:
+    """Tear the mesh lane's process group down while the interpreter is
+    whole: a barrier (no rank closes its connections while a peer still
+    uses them), ``destroy_process_group``, then a collection of the
+    reference cycles (the server's stages and the mesh's shift hold the
+    group) that would otherwise keep the gloo group alive until the
+    interpreter's finalization, where destroying it can abort the rank
+    ("terminate called without an active exception", exit -6) after its
+    work is done."""
+    import gc
+
+    import torch.distributed as dist
+
+    dist.barrier(group)
+    dist.destroy_process_group()
+    gc.collect()
 
 
 def _serve_sharded(args, fit_cfg, serve_cfg, group) -> dict:

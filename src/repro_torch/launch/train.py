@@ -10,9 +10,10 @@ steps.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --steps 50 --batch 8 --seq 128 [--smoke] [--device cpu]
 
+A VLM's batches carry stub ``"patches"`` drawn as JAX's CLI draws them.
 ``--ckpt-dir`` resumes from the latest checkpoint there (either package's)
-and continues the token stream and the step count where the saved state
-stopped; JAX's CLI restarts both at 0. The mesh of JAX's CLI
+and continues the token and patch streams and the step count where the
+saved state stopped; JAX's CLI restarts them at 0. The mesh of JAX's CLI
 (``make_host_mesh``, ``state_pspecs``) waits for the sharding slice.
 """
 from __future__ import annotations
@@ -23,12 +24,31 @@ import time
 import numpy as np
 
 
-def device_batch(tokens: np.ndarray, targets: np.ndarray, device) -> dict:
-    """One (tokens, targets) pair of ``synthetic_token_batches`` on ``device``."""
+def device_batch(tokens: np.ndarray, targets: np.ndarray, device,
+                 patches: np.ndarray | None = None) -> dict:
+    """One (tokens, targets) pair of ``synthetic_token_batches`` on
+    ``device``, with a VLM's stub ``patches`` when given."""
     import torch
 
-    return {"tokens": torch.from_numpy(tokens).to(device),
-            "targets": torch.from_numpy(targets).to(device)}
+    batch = {"tokens": torch.from_numpy(tokens).to(device),
+             "targets": torch.from_numpy(targets).to(device)}
+    if patches is not None:
+        batch["patches"] = torch.from_numpy(patches).to(device)
+    return batch
+
+
+def patch_stream(cfg, batch: int, seed: int, skip: int = 0):
+    """A VLM's stub patch embeddings for each step, as JAX's CLI draws
+    them: (batch, num_patches, vit_dim) float32 from one
+    ``default_rng(seed)``, the first ``skip`` draws discarded (a resumed
+    run continues the stream); None forever without a vision stub."""
+    rng = np.random.default_rng(seed)
+    v = cfg.vision
+    shape = None if v is None else (batch, v.num_patches, v.vit_dim)
+    for _ in range(skip if shape else 0):
+        rng.normal(size=shape)
+    while True:
+        yield None if shape is None else rng.normal(size=shape).astype(np.float32)
 
 
 def main() -> None:
@@ -77,9 +97,10 @@ def main() -> None:
     start = int(state.step)
     data = synthetic_token_batches(cfg.vocab_size, args.batch, args.seq, seed=args.seed,
                                    num_batches=args.steps, start_row=start)
+    patches = patch_stream(cfg, args.batch, args.seed, skip=start)
     t0 = time.perf_counter()
-    for i, (toks, targets) in enumerate(data, start=start + 1):
-        state, metrics = step_fn(state, device_batch(toks, targets, dev))
+    for i, ((toks, targets), pt) in enumerate(zip(data, patches), start=start + 1):
+        state, metrics = step_fn(state, device_batch(toks, targets, dev, pt))
         if (i - start) % args.log_every == 0:
             loss, ce = float(metrics["loss"]), float(metrics["ce"])  # the one host read
             dt = time.perf_counter() - t0

@@ -107,14 +107,18 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, kind: str,
     raise ValueError(kind)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``: its default is the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def apply_mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     dt = x.dtype
     if kind == "swiglu":
         gate = F.silu(x @ p["w_gate"].to(dt))
         return (gate * (x @ p["w_up"].to(dt))) @ p["w_down"].to(dt)
     if kind == "gelu":
-        # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt), approximate="tanh")
+        h = gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt))
         return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
     raise ValueError(kind)
 

@@ -1,9 +1,12 @@
 """Model assembly: pattern periods over composable blocks (PyTorch).
 
 Port of ``repro.models.transformer`` for the blocks the port has: a LAYER
-is a temporal-mixing block (``attn``, ``local_attn`` or ``mla``) plus —
-unless ``mlp_kind == "none"`` — a feed-forward block (SwiGLU/GeLU, or MoE
-for MoE archs), each pre-normed with residuals.
+is a temporal-mixing block (``attn``, ``local_attn``, ``mla``, or the
+xLSTM blocks ``mlstm`` and ``slstm``) plus — unless ``mlp_kind ==
+"none"`` — a feed-forward block (SwiGLU/GeLU, or MoE for MoE archs), each
+pre-normed with residuals. A VLM's stubbed patch embeddings go through
+the ``projector`` (gelu(patches @ w1) @ w2) and are prepended to the
+token embeddings.
 
 The parameter and cache trees are JAX's, key path for key path: the
 layers of all full PATTERN PERIODS (cfg.block_pattern) are stacked on a
@@ -15,13 +18,14 @@ layer 0 (``moe.first_layer_dense``) is ``"prelude"``, then
 and LM train states checkpoint both ways (``repro_torch.checkpoint``).
 Where JAX scans over the periods, the port loops over them in Python on
 views of the stacked leaves; decode writes into the stacked cache in
-place. ``cfg.remat`` becomes ``torch.utils.checkpoint`` per period, in
-training only. The MoE layers' load-balance losses are summed over the
-layers in JAX's order (prelude, periods, remainder).
+place (the recurrent blocks ``copy_`` their new states into it).
+``cfg.remat`` becomes ``torch.utils.checkpoint`` per period, in training
+only. The MoE layers' load-balance losses are summed over the layers in
+JAX's order (prelude, periods, remainder).
 
-The other block kinds and sub-models (xLSTM, RG-LRU, the encoder and the
-vision stub) raise ``NotImplementedError`` naming their slice of
-``ROADMAP.md`` queue 1, item 6.
+The other block kinds and sub-models (RG-LRU, the encoder) raise
+``NotImplementedError`` naming their slice of ``ROADMAP.md`` queue 1,
+item 6.
 """
 from __future__ import annotations
 
@@ -33,9 +37,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (
     Params,
     apply_mlp,
+    gelu,
     dense_init,
     embed_init,
     init_mlp,
@@ -49,15 +55,12 @@ Cache = dict[str, Any]
 # what the port does not have yet, and the slice of ROADMAP.md queue 1,
 # item 6 that brings it
 NOT_PORTED = {
-    "mlstm": "xLSTM blocks: ROADMAP.md queue 1, item 6.3",
-    "slstm": "xLSTM blocks: ROADMAP.md queue 1, item 6.3",
     "rglru": "RG-LRU blocks: ROADMAP.md queue 1, item 6.4",
     "encoder": "the encoder-decoder: ROADMAP.md queue 1, item 6.6",
-    "vision": "the vision stub: ROADMAP.md queue 1, item 6.7",
 }
 
 
-MIXING = ("attn", "local_attn", "mla")
+MIXING = ("attn", "local_attn", "mla", "mlstm", "slstm")
 
 
 def layout(cfg: ModelConfig) -> tuple[bool, int, tuple[str, ...]]:
@@ -73,11 +76,11 @@ def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the slice that brings what
     ``cfg`` needs and the port does not have yet."""
     parts = [b for b in cfg.block_pattern if b not in MIXING]
-    parts += [name for name in ("encoder", "vision") if getattr(cfg, name) is not None]
+    parts += ["encoder"] if cfg.encoder is not None else []
     if parts:
         raise NotImplementedError(
-            f"{cfg.name}: the port has the attention, MLA and MoE blocks only; "
-            f"{NOT_PORTED[parts[0]]}"
+            f"{cfg.name}: the port has the attention, MLA, MoE and xLSTM blocks and the "
+            f"vision stub only; {NOT_PORTED[parts[0]]}"
         )
 
 
@@ -105,8 +108,14 @@ def init_layer_params(gen: torch.Generator, cfg: ModelConfig, kind: str,
     if kind not in MIXING:
         raise NotImplementedError(NOT_PORTED.get(kind, kind))
     ones = {"dtype": torch.float32, "device": gen.device}
-    mix = attn.init_mla_params(gen, cfg, lead) if kind == "mla" else \
-        attn.init_gqa_params(gen, cfg, lead)
+    if kind == "mla":
+        mix = attn.init_mla_params(gen, cfg, lead)
+    elif kind == "mlstm":
+        mix = ssm_lib.init_mlstm_params(gen, cfg, lead)
+    elif kind == "slstm":
+        mix = ssm_lib.init_slstm_params(gen, cfg, lead)
+    else:
+        mix = attn.init_gqa_params(gen, cfg, lead)
     p: Params = {"ln1": torch.ones(lead + (cfg.d_model,), **ones), "mix": mix}
     if cfg.mlp_kind != "none":
         p["ln2"] = torch.ones(lead + (cfg.d_model,), **ones)
@@ -126,6 +135,10 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq: int, dtype,
         return attn.init_gqa_cache(cfg, batch, seq, cfg.sliding_window, dtype, device, lead)
     if kind == "mla":
         return attn.init_mla_cache(cfg, batch, seq, dtype, device, lead)
+    if kind == "mlstm":
+        return ssm_lib.init_mlstm_cache(cfg, batch, dtype, device, lead)
+    if kind == "slstm":
+        return ssm_lib.init_slstm_cache(cfg, batch, dtype, device, lead)
     raise NotImplementedError(NOT_PORTED.get(kind, kind))
 
 
@@ -147,6 +160,10 @@ def layer_forward(
     if kind == "mla":
         out, cache = attn.mla_forward(p["mix"], cfg, h, positions, cache=cache,
                                       cache_pos=cache_pos)
+    elif kind == "mlstm":
+        out, cache = ssm_lib.mlstm_forward(p["mix"], cfg, h, cache=cache)
+    elif kind == "slstm":
+        out, cache = ssm_lib.slstm_forward(p["mix"], cfg, h, cache=cache)
     else:
         window = cfg.sliding_window if kind == "local_attn" else 0
         out, cache = attn.gqa_forward(p["mix"], cfg, h, positions, window=window, cache=cache,
@@ -187,6 +204,9 @@ def init_model_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     p["final_norm"] = torch.ones((D,), dtype=torch.float32, device=gen.device)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (D, V))
+    if cfg.vision is not None:
+        p["projector"] = {"w1": dense_init(gen, (cfg.vision.vit_dim, D)),
+                          "w2": dense_init(gen, (D, D))}
     return p
 
 
@@ -237,13 +257,16 @@ def forward(
     cfg: ModelConfig,
     tokens: torch.Tensor,
     *,
+    patches: torch.Tensor | None = None,
     cache: Cache | None = None,
     cache_pos: torch.Tensor | int | None = None,
     moe_group=None,
 ) -> tuple[torch.Tensor, Cache | None, torch.Tensor]:
     """Full model forward.
 
-    tokens (B, S) integer. cache/cache_pos: decode state (cache_pos =
+    tokens (B, S) integer. patches: (B, P, vit_dim) stub ViT embeddings of
+    a VLM, projected and prepended (the logits are then (B, P + S, V)).
+    cache/cache_pos: decode state (cache_pos =
     #tokens already consumed; a host int or a () tensor); the cache is
     written in place and returned. moe_group: a ``torch.distributed``
     group every MoE layer splits its experts over (``moe.moe_forward``).
@@ -262,6 +285,12 @@ def forward(
     B, S = tokens.shape
     dev = tokens.device
     x = params["embed"].to(dt)[tokens]
+
+    if cfg.vision is not None and patches is not None:
+        pr = params["projector"]
+        pe = gelu(patches.to(dt) @ pr["w1"].to(dt)) @ pr["w2"].to(dt)
+        x = torch.cat([pe, x], dim=1)  # image tokens first
+        S = x.shape[1]
 
     pos0 = cache_pos if cache_pos is not None else 0
     positions = pos0 + torch.arange(S, device=dev)

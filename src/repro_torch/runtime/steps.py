@@ -49,8 +49,13 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def _loss_fn(params, cfg: ModelConfig, batch: dict[str, torch.Tensor]):
-    logits, _, aux = transformer.forward(params, cfg, batch["tokens"])
-    ce = cross_entropy(logits, batch["targets"])
+    logits, _, aux = transformer.forward(params, cfg, batch["tokens"],
+                                         patches=batch.get("patches"))
+    targets = batch["targets"]
+    if logits.shape[1] != targets.shape[1]:
+        # VLM: image positions prepended — loss on the text region only
+        logits = logits[:, -targets.shape[1]:]
+    ce = cross_entropy(logits, targets)
     aux_w = cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
     return ce + aux_w * aux, ce, aux
 
@@ -101,15 +106,16 @@ def make_train_step(
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int):
-    """Prompt -> (last-token logits, filled cache)."""
+    """Prompt (and a VLM's patches, prepended) -> (last-token logits, filled
+    cache); ``cache_len`` counts the patches' positions too."""
     serve_cfg = dataclasses.replace(cfg, remat=False)
 
     @torch.no_grad()
-    def prefill_step(params, tokens):
+    def prefill_step(params, tokens, patches=None):
         cache = transformer.init_cache(serve_cfg, tokens.shape[0], cache_len,
                                        transformer.torch_dtype(serve_cfg.dtype), tokens.device)
-        logits, cache, _ = transformer.forward(params, serve_cfg, tokens, cache=cache,
-                                               cache_pos=0)
+        logits, cache, _ = transformer.forward(params, serve_cfg, tokens, patches=patches,
+                                               cache=cache, cache_pos=0)
         return logits[:, -1], cache
 
     return prefill_step

@@ -11,14 +11,17 @@ repro_torch.launch.serve --gp`` with and without ``--sharded`` (the
 sharded warm-up's tolerance ratio against the replicated answers, <= 1,
 as ``ref.tolerance_ratio`` of the blend's summed terms); ``--gp --http``
 answering a request; ``python -m repro_torch.launch.serve_sharded`` on the
-one-process program and under ``torchrun`` on the mesh lane; the refusals
+one-process program and under ``torchrun`` on the mesh lane (each
+assertion carrying the command's return code and both streams' tails),
+and the lane's teardown (``serve_sharded.close_mesh_group``) in process;
+the refusals
 (``--arch`` of an unported architecture, ``--sharded`` or ``--http``
 without ``--gp``, no GPU without ``--device cpu``); ``--help`` of every
 new CLI touching no CUDA state and no process group; each
 ``examples/*_torch.py`` twin (``serve_demo_torch.py`` in its LM mode, the
 default, and under ``--gp``; an unported ``--arch`` exits naming its
 slice); ``launch.serve --arch`` and ``launch.train --arch`` at ``--smoke``
-for the MoE and MLA architectures.
+for the MoE, MLA, xLSTM and VLM architectures.
 """
 from __future__ import annotations
 
@@ -138,18 +141,73 @@ def test_sharded_cli_warmup_agrees_with_replicated(argv):
     assert "served 3 requests x 64 points" in r.stdout
 
 
+def _diagnostics(rc, stdout, stderr) -> str:
+    """A command's return code and the tails of both its streams."""
+    out, err = ((s.decode(errors="replace") if isinstance(s, bytes) else s or "")
+                for s in (stdout, stderr))
+    return (f"rc={rc}\n--- stdout (tail) ---\n{out[-3000:]}"
+            f"\n--- stderr (tail) ---\n{err[-3000:]}")
+
+
 def test_serve_sharded_under_torchrun_serves_on_the_mesh_lane():
     # --standalone: the rendezvous store binds a port the OS picks
-    r = _run(["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
-              "-m", "repro_torch.launch.serve_sharded", *TINY_GP], timeout=240)
-    assert r.returncode == 0, r.stderr[-3000:]
-    assert "lane: mesh over 4 ranks (gloo)" in r.stdout
-    assert "0.192 kB/rank (1/4 of replicated)" in r.stdout
+    try:
+        r = _run(["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
+                  "-m", "repro_torch.launch.serve_sharded", *TINY_GP], timeout=240)
+    except subprocess.TimeoutExpired as e:
+        pytest.fail(f"no exit within 240 s\n{_diagnostics(None, e.stdout, e.stderr)}")
+    why = _diagnostics(r.returncode, r.stdout, r.stderr)
+    assert r.returncode == 0, why
+    assert "lane: mesh over 4 ranks (gloo)" in r.stdout, why
+    assert "0.192 kB/rank (1/4 of replicated)" in r.stdout, why
     m = re.search(r"tolerance ratio mean ([0-9.e+-]+) var ([0-9.e+-]+)", r.stdout)
-    assert float(m.group(1)) <= 1 and float(m.group(2)) <= 1
+    assert m is not None, why
+    assert float(m.group(1)) <= 1 and float(m.group(2)) <= 1, why
     # 4 shifts a request: the warm-up and 3 requests
-    assert "rank 0 exchange: 16 shifts" in r.stdout
-    assert r.stdout.count("served 3 requests") == 1  # rank 0 alone reports
+    assert "rank 0 exchange: 16 shifts" in r.stdout, why
+    assert r.stdout.count("served 3 requests") == 1, why  # rank 0 alone reports
+
+
+def test_close_mesh_group_frees_the_group_the_servers_cycles_hold(tmp_path):
+    """The mesh lane's teardown: the server's stages and the mesh's shift
+    hold the gloo group in reference cycles, so ``destroy_process_group``
+    alone leaves it alive until a collection (at exit: the interpreter's
+    finalization, where destroying it could abort a ``torchrun`` rank);
+    ``close_mesh_group`` frees it before it returns."""
+    import gc
+    import weakref
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api
+
+    torch.set_num_threads(1)
+    fitted = api.fit(api.FitConfig(grid=1, m=4, train_iters=5, seed=0), t_field(n=200, seed=0),
+                     device="cpu")
+    gc.disable()  # no incidental collection between the two reads
+    try:
+        for close in (False, True):
+            dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / f"s{close}"), 1),
+                                    rank=0, world_size=1)
+            group = dist.group.WORLD
+            alive = weakref.ref(group)
+            server = api.Server(fitted, api.ServeConfig(mode="sharded"), group=group)
+            assert server.mesh is not None and server.submit(np.zeros((8, 2), np.float32))
+            del server
+            if close:
+                tss.close_mesh_group(group)
+            else:
+                dist.destroy_process_group()
+            del group
+            assert not dist.is_initialized()
+            assert (alive() is None) == close  # the cycles kept it without the collection
+            gc.collect()
+            assert alive() is None
+    finally:
+        gc.enable()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_serve_gp_http_answers_a_request(tmp_path):
@@ -183,8 +241,8 @@ def test_serve_gp_http_answers_a_request(tmp_path):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--arch", "xlstm-350m", "--smoke", "--device", "cpu"],
-     "xLSTM blocks: ROADMAP.md queue 1, item 6.3"),
+    (["--arch", "recurrentgemma-2b", "--smoke", "--device", "cpu"],
+     "RG-LRU blocks: ROADMAP.md queue 1, item 6.4"),
     (["--sharded"], "add --gp"),
     (["--http"], "add --gp"),
     ([], "--arch required (or --gp"),
@@ -304,6 +362,20 @@ def test_lm_clis_serve_and_train_the_moe_and_mla_smoke_configs(arch):
               "--prompt-len", "16", "--gen", "4", "--temperature", "0"], timeout=180)
     assert r.returncode == 0, r.stderr[-3000:]
     assert f"arch={arch}-smoke device=cpu" in r.stdout and "decode: 4 steps x 4 seqs" in r.stdout
+    r = _run(["-m", "repro_torch.launch.train", "--arch", arch, "--smoke", "--device", "cpu",
+              "--steps", "2", "--batch", "2", "--seq", "16", "--log-every", "1"], timeout=180)
+    assert r.returncode == 0, r.stderr[-3000:]
+    losses = [float(v) for v in re.findall(r"loss ([0-9.]+)", r.stdout)]
+    assert len(losses) == 2 and np.isfinite(losses).all() and "done." in r.stdout
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "internvl2-76b"])
+def test_lm_clis_serve_and_train_the_xlstm_and_vlm_smoke_configs(arch):
+    r = _run(["-m", "repro_torch.launch.serve", "--arch", arch, "--smoke", "--device", "cpu",
+              "--prompt-len", "16", "--gen", "4", "--temperature", "0"], timeout=180)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert f"arch={arch}-smoke device=cpu" in r.stdout and "decode: 4 steps x 4 seqs" in r.stdout
+    assert ("patches: 4x8 x 96 prepended" in r.stdout) == (arch == "internvl2-76b")
     r = _run(["-m", "repro_torch.launch.train", "--arch", arch, "--smoke", "--device", "cpu",
               "--steps", "2", "--batch", "2", "--seq", "16", "--log-every", "1"], timeout=180)
     assert r.returncode == 0, r.stderr[-3000:]

@@ -6,8 +6,9 @@ tokens:
 
   * every config copy equals JAX's, field by field; the architectures
     whose blocks are not ported yet still ``get()``, and raise in
-    ``init_model_params`` / ``init_cache`` naming their slice; the MoE
-    and MLA smoke configs build, serve and take a training step;
+    ``init_model_params`` / ``init_cache`` naming their slice; the MoE,
+    MLA, xLSTM and VLM smoke configs build, serve and take a training
+    step;
   * ``forward`` equals JAX's for the dense test configs of
     ``tests/test_models.py`` (qk-norm + QKV bias, sliding window), the smoke
     configs of qwen3-0.6b, qwen2-0.5b and h2o-danube-3-4b, and a two-kind
@@ -144,10 +145,8 @@ def test_registry_copy():
 
 
 @pytest.mark.parametrize("arch,slice_", [
-    ("xlstm-350m", "xLSTM blocks: ROADMAP.md queue 1, item 6.3"),
     ("recurrentgemma-2b", "RG-LRU blocks: ROADMAP.md queue 1, item 6.4"),
     ("whisper-base", "the encoder-decoder: ROADMAP.md queue 1, item 6.6"),
-    ("internvl2-76b", "the vision stub: ROADMAP.md queue 1, item 6.7"),
 ])
 def test_unported_architectures_raise_naming_their_slice(arch, slice_):
     cfg = treg.get_smoke(arch)
@@ -178,6 +177,30 @@ def test_moe_and_mla_smoke_configs_serve_and_train(arch):
                                                        "targets": torch.roll(toks, -1, 1)})
     assert new.step == 1 and np.isfinite(float(metrics["loss"]))
     assert (float(metrics["aux"]) > 0) == (cfg.moe is not None)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "internvl2-76b"])
+def test_xlstm_and_vlm_smoke_configs_serve_and_train(arch):
+    """The architectures slice 12 brought (xLSTM, the vision stub) build,
+    prefill (a VLM with its patches prepended), decode and take a training
+    step at their smoke configs; parity with JAX is in
+    tests/test_torch_xlstm.py and tests/test_torch_vlm.py."""
+    cfg = treg.get_smoke(arch)
+    state = tsteps.init_train_state(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(_tokens(cfg, (2, 16), 0))
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    P = 0
+    if cfg.vision is not None:
+        P = cfg.vision.num_patches
+        batch["patches"] = torch.randn((2, P, cfg.vision.vit_dim),
+                                       generator=torch.Generator().manual_seed(1))
+    logits, cache = tsteps.make_prefill_step(cfg, P + 20)(state.params, toks,
+                                                          batch.get("patches"))
+    assert logits.shape == (2, cfg.padded_vocab_size) and bool(torch.isfinite(logits).all())
+    logits, cache = tsteps.make_decode_step(cfg)(state.params, cache, P + 16, toks[:, :1])
+    assert bool(torch.isfinite(logits).all())
+    new, metrics = tsteps.make_train_step(cfg)(state, batch)
+    assert new.step == 1 and np.isfinite(float(metrics["loss"])) and float(metrics["aux"]) == 0
 
 
 # ---------------------------------------------------------------------------
