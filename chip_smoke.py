@@ -155,8 +155,8 @@ Phases, each printed as it runs; any failure exits non-zero:
               layer on 2 spawned gloo ranks, 32 experts each, against the
               local path (<= 2e-5 x max(1, max|out|), aux equal, 1
               all-reduce a forward), and launch.serve --arch and
-              launch.train --arch of the three and of phase 14's two at
-              --smoke, all at once.
+              launch.train --arch of the three and of phase 14's and
+              phase 15's two at --smoke, all at once.
  14. xlstm-vlm xLSTM and the vision stub at the published width, random
               from --seed: xlstm-350m uncut (24 layers, 5 mLSTM : 1
               sLSTM, 590,423,200 parameters) and internvl2-76b served at 4
@@ -169,6 +169,17 @@ Phases, each printed as it runs; any failure exits non-zero:
               steps on one 8 x 256 batch falling (remat), 5 timed steps on
               CUDA events, peak memory. internvl2-76b is not trained at
               its published width here (~92 GB at one layer).
+ 15. rglru-encdec RG-LRU and the encoder-decoder at the published width,
+              random from --seed, the card holding under 1 GiB at the
+              start: recurrentgemma-2b served at its 26 layers
+              (3,549,795,840 parameters) and trained at 4
+              (1,659,432,960; the functional AdamW would need ~106 GB at
+              26); whisper-base uncut (100,167,680; 1,500 seeded stub
+              frames x 512 through the encoder at the prefill, none in
+              decode). Each: phase 14's cache gates, serve numbers, 8
+              AdamW steps on one 8 x 256 batch falling (whisper's batches
+              with their frames), 5 timed steps on CUDA events, peak
+              memory.
 
 Each phase's seconds are printed as "[phases] <phase>: <s> s".
 
@@ -2270,18 +2281,19 @@ def lm_flops_per_token(cfg, seq: int) -> float:
     return 6.0 * matmul + 12.0 * cfg.num_layers * cfg.num_heads * hd * seq
 
 
-def _lm_cache_gap(torch, params, cfg, tokens, patches=None) -> tuple[float, object]:
+def _lm_cache_gap(torch, params, cfg, tokens, frames=None, patches=None) -> tuple[float, object]:
     """max |logits| gap of prefill(S) + LM_CHECKED decode steps (positions
-    S - 1 .. S + LM_CHECKED - 1 after a VLM's P prepended patches) against
-    one uncached forward over the S + LM_CHECKED tokens (unmasked logits),
-    and that forward's logits at those positions."""
+    S - 1 .. S + LM_CHECKED - 1 after a VLM's P prepended patches; an
+    encoder-decoder's frames in the prefill, none in decode) against one
+    uncached forward over the S + LM_CHECKED tokens (unmasked logits), and
+    that forward's logits at those positions."""
     from repro_torch.models.transformer import forward
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
 
     S = tokens.shape[1] - LM_CHECKED
     P = patches.shape[1] if patches is not None else 0
     last, cache = make_prefill_step(cfg, cache_len=P + S + LM_CHECKED)(
-        params, tokens[:, :S], patches)
+        params, tokens[:, :S], frames=frames, patches=patches)
     decode = make_decode_step(cfg)
     got = [last]
     for i in range(LM_CHECKED):
@@ -2289,7 +2301,7 @@ def _lm_cache_gap(torch, params, cfg, tokens, patches=None) -> tuple[float, obje
         got.append(lg)
     del cache
     with torch.no_grad():
-        full, _, _ = forward(params, cfg, tokens, patches=patches)
+        full, _, _ = forward(params, cfg, tokens, frames=frames, patches=patches)
     want = full[:, P + S - 1:]
     ok = want > -1e29
     gap = float((torch.stack(got, 1) - want)[ok].abs().max())
@@ -2659,7 +2671,9 @@ def moe_spmd_check(dev, card: str, seed: int, rank_fn=None) -> dict:
 def _p13_serve(torch, dev, card: str, cfg, params, seed: int, rec: dict,
                tag: str = "moe-mla") -> None:
     """The cache gates, the dropped share, serve times and the host share
-    of a decode step, for one model (a VLM's seeded patches prepended)."""
+    of a decode step, for one model (an encoder-decoder's seeded frames
+    through the encoder at the prefill, a VLM's seeded patches
+    prepended)."""
     from repro_torch.launch.serve import generate, lm_request
     from repro_torch.models import moe
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
@@ -2669,16 +2683,19 @@ def _p13_serve(torch, dev, card: str, cfg, params, seed: int, rec: dict,
     # no group can overflow (a capacity drop differs by design between a
     # T-token prefill and a 1-token decode step)
     gate_cfg = raised_capacity(cfg)
-    tokens, patches = lm_request(cfg, P13_BATCH, P13_PROMPT + LM_CHECKED, seed)
+    tokens, frames, patches = lm_request(cfg, P13_BATCH, P13_PROMPT + LM_CHECKED, seed)
     tokens = torch.from_numpy(tokens).to(dev)
     P = 0
+    if frames is not None:
+        frames = torch.from_numpy(frames).to(dev)
+        rec["frames"] = list(frames.shape)
     if patches is not None:
         patches = torch.from_numpy(patches).to(dev)
         P = patches.shape[1]
         rec["patches"] = list(patches.shape)
     gap32, full32 = _lm_cache_gap(torch, params, dataclasses.replace(gate_cfg, dtype="float32"),
-                                  tokens, patches)
-    gap16, full16 = _lm_cache_gap(torch, params, gate_cfg, tokens, patches)
+                                  tokens, frames, patches)
+    gap16, full16 = _lm_cache_gap(torch, params, gate_cfg, tokens, frames, patches)
     ok = full32 > -1e29
     noise = float((full16 - full32)[ok].abs().max())
     scale = float(full32[ok].abs().max())
@@ -2689,6 +2706,8 @@ def _p13_serve(torch, dev, card: str, cfg, params, seed: int, rec: dict,
                                                            if cfg.moe else None))
     print(f"[{tag}] [{card}] {name}: prefill({P13_PROMPT}) + {LM_CHECKED} decode steps vs the "
           f"uncached forward, batch {P13_BATCH}"
+          + (f", {frames.shape[1]} frames x {frames.shape[2]} through the encoder at the "
+             "prefill (decode without them)" if frames is not None else "")
           + (f", {P} patches x {patches.shape[2]} prepended (cache {P} + {P13_PROMPT} + "
              f"{LM_CHECKED} positions)" if P else "")
           + (f", capacity raised to E/K = {gate_cfg.moe.capacity_factor:.4f}" if cfg.moe else "")
@@ -2710,9 +2729,11 @@ def _p13_serve(torch, dev, card: str, cfg, params, seed: int, rec: dict,
               f"{cfg.moe.capacity_factor}: {total - kept:.0f} of {total} (token, expert) "
               f"assignments dropped over {len(log)} MoE layers (share "
               f"{rec['prefill_dropped_share']:.4f})")
-    first = generate(params, cfg, prompts, P13_GEN, temperature=0.0, patches=patches)
+    first = generate(params, cfg, prompts, P13_GEN, temperature=0.0, frames=frames,
+                     patches=patches)
     torch.cuda.reset_peak_memory_stats()
-    out = generate(params, cfg, prompts, P13_GEN, temperature=0.0, patches=patches)
+    out = generate(params, cfg, prompts, P13_GEN, temperature=0.0, frames=frames,
+                   patches=patches)
     rec["serve_peak_bytes"] = torch.cuda.max_memory_allocated()
     toks = out["tokens"]
     check(tuple(toks.shape) == (P13_BATCH, P13_GEN) and bool((toks >= 0).all())
@@ -2722,8 +2743,8 @@ def _p13_serve(torch, dev, card: str, cfg, params, seed: int, rec: dict,
                decode_ms_per_step=1e3 * dec_s / (P13_GEN - 1),
                decode_tok_s=P13_BATCH * (P13_GEN - 1) / dec_s,
                greedy_repeat_equal=bool(torch.equal(first["tokens"], toks)))
-    _, cache = make_prefill_step(cfg, cache_len=P + P13_PROMPT + P13_GEN)(params, prompts,
-                                                                            patches)
+    _, cache = make_prefill_step(cfg, cache_len=P + P13_PROMPT + P13_GEN)(
+        params, prompts, frames=frames, patches=patches)
     decode = make_decode_step(cfg)
     tok = toks[:, :1]
     decode(params, cache, P + P13_PROMPT, tok)
@@ -2750,10 +2771,11 @@ def _p13_serve(torch, dev, card: str, cfg, params, seed: int, rec: dict,
 def _p13_train(torch, dev, card: str, cfg, holder: list, seed: int, rec: dict,
                tag: str = "moe-mla") -> None:
     """8 AdamW steps on one batch (the loss falls), then P13_TIMED_STEPS
-    timed on CUDA events, remat on. ``holder`` hands over the parameters
-    (a list of one tree, emptied here, so that no caller keeps them)."""
+    timed on CUDA events, remat on; an encoder-decoder's batches carry the
+    train CLI's seeded frames. ``holder`` hands over the parameters (a
+    list of one tree, emptied here, so that no caller keeps them)."""
     from repro_torch.data.tokens import synthetic_token_batches
-    from repro_torch.launch.train import device_batch
+    from repro_torch.launch.train import device_batch, stub_stream
     from repro_torch.optim import adam_init, tree_leaves
     from repro_torch.runtime.steps import TrainState, make_train_step
 
@@ -2764,7 +2786,9 @@ def _p13_train(torch, dev, card: str, cfg, holder: list, seed: int, rec: dict,
     step = make_train_step(cfg, learning_rate=P13_TRAIN_LR)
     toks_np, tg_np = next(synthetic_token_batches(cfg.vocab_size, P13_TRAIN_BATCH,
                                                   P13_TRAIN_SEQ, seed=seed))
-    batch = device_batch(toks_np, tg_np, dev)
+    stubs = stub_stream(cfg, P13_TRAIN_BATCH, seed)
+    fr, pt = next(stubs)
+    batch = device_batch(toks_np, tg_np, dev, frames=fr, patches=pt)
     losses, auxes = [], []
     for _ in range(P13_OVERFIT_STEPS):
         state, m = step(state, batch)
@@ -2792,8 +2816,8 @@ def _p13_train(torch, dev, card: str, cfg, holder: list, seed: int, rec: dict,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     events, tl = [], []
-    for toks_np, tg_np in data:
-        b = device_batch(toks_np, tg_np, dev)
+    for (toks_np, tg_np), (fr, pt) in zip(data, stubs):
+        b = device_batch(toks_np, tg_np, dev, frames=fr, patches=pt)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         state, m = step(state, b)
@@ -2809,7 +2833,9 @@ def _p13_train(torch, dev, card: str, cfg, holder: list, seed: int, rec: dict,
                train_peak_bytes=torch.cuda.max_memory_allocated(), train_losses=tl)
     del state, batch
     print(f"[{tag}] [{card}] {name}: train (AdamW lr {P13_TRAIN_LR}, remat, bf16, "
-          f"{P13_TRAIN_BATCH}x{P13_TRAIN_SEQ}): {P13_OVERFIT_STEPS} steps on one batch, losses "
+          f"{P13_TRAIN_BATCH}x{P13_TRAIN_SEQ}"
+          + (f", {fr.shape[1]} frames x {fr.shape[2]} a sequence" if fr is not None else "")
+          + f"): {P13_OVERFIT_STEPS} steps on one batch, losses "
           + ", ".join(f"{v:.4f}" for v in losses)
           + (f" (aux {rec['overfit_aux'][0]:.4f} .. {rec['overfit_aux'][-1]:.4f}; the same step "
              "twice, the bit patterns' per-leaf sums equal: "
@@ -2820,10 +2846,10 @@ def _p13_train(torch, dev, card: str, cfg, holder: list, seed: int, rec: dict,
 
 def p13_cli_commands() -> list:
     """(label, argv after the interpreter): launch.serve --arch and
-    launch.train --arch at --smoke for each of phase 13's and phase 14's
-    architectures (one concurrent batch, run in phase 13)."""
+    launch.train --arch at --smoke for each of phase 13's, phase 14's and
+    phase 15's architectures (one concurrent batch, run in phase 13)."""
     cmds = []
-    for arch in [a for a, *_ in P13_MODELS] + list(P14_ARCHS):
+    for arch in [a for a, *_ in P13_MODELS] + list(P14_ARCHS) + list(P15_ARCHS):
         cmds.append((f"serve --arch {arch} --smoke",
                      ["-m", "repro_torch.launch.serve", "--arch", arch, "--smoke", "--gen", "8",
                       "--temperature", "0"]))
@@ -2991,6 +3017,100 @@ def xlstm_vlm_phase(torch, dev, card: str, report: dict, seed: int) -> None:
     out["phase_s"] = time.perf_counter() - t_phase
     report["xlstm_vlm"] = out
     print(f"[xlstm-vlm] [{card}] phase 14: {out['phase_s']:.3f} s")
+
+
+# --------------------------------------------------------------------------
+# 15. RG-LRU and the encoder-decoder at the published width:
+#     recurrentgemma-2b served uncut and trained at 4 layers, whisper-base
+#     uncut
+# --------------------------------------------------------------------------
+
+# jax.eval_shape(transformer.init_model_params) over repro.configs.get
+P15_ARCHS = ("recurrentgemma-2b", "whisper-base")
+P15_RG_PARAMS = 3_549_795_840
+P15_RG_TRAIN_LAYERS = 4  # one period of (rglru, rglru, local_attn) and a remainder rglru
+P15_RG_TRAIN_PARAMS = 1_659_432_960
+P15_WHISPER_PARAMS = 100_167_680
+# recurrentgemma-2b is trained at 4 of its 26 layers: the functional AdamW
+# holds ~30 B a parameter (~106 GB at full depth with the fp32 passes over
+# the (8, 256, 256,000) logits), ~50 GB at 4
+P15_START_BYTES = 1 << 30  # what an earlier phase may still hold on the card
+
+
+def rglru_encdec_phase(torch, dev, card: str, report: dict, seed: int) -> None:
+    """Phase 15: recurrentgemma-2b served at its published 26 layers (8
+    periods of (rglru, rglru, local_attn) and 2 trailing rglru) and
+    trained at 4 (``dataclasses.replace(cfg, num_layers=4)``), and
+    whisper-base uncut (6 encoder and 6 decoder layers, 1,500 seeded stub
+    frames x 512, no enc_proj at this width), random from ``seed`` on the
+    card. Gates: the card holds under 1 GiB at the start; the parameter
+    counts; prefill(128) + 8 decode steps against the uncached forward,
+    batch 4, fp32 and bf16 (phase 13's bounds; whisper's prefill with its
+    frames, decode without them); 8 AdamW steps on one 8 x 256 batch
+    falling. Prints serve times and the decode step's host share, train ms
+    p50 on CUDA events, tok/s and peak CUDA memory. The two architectures'
+    CLIs at --smoke run in phase 13's concurrent batch."""
+    from repro_torch.configs import get
+    from repro_torch.models.transformer import init_model_params
+    from repro_torch.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[rglru-encdec] [{card}] CUDA memory allocated at the phase's start: {held:,} B "
+          f"(the card: {free:,} of {total:,} B free)")
+    check(held < P15_START_BYTES, f"phase 15 starts with {held} B on the card (an earlier "
+          f"phase's tensors; limit {P15_START_BYTES})")
+    out: dict = {"start_allocated_bytes": held, "start_free_bytes": free, "models": {}}
+
+    def build(full, layers: int, want: int, what: str):
+        cfg = dataclasses.replace(full, num_layers=layers)
+        t0 = time.perf_counter()
+        params = init_model_params(torch.Generator(dev).manual_seed(seed), cfg)
+        torch.cuda.synchronize()
+        got = sum(a.numel() for a in tree_leaves(params))
+        check(got == want, f"{full.name}: {got} parameters at depth {layers}, not {want}")
+        cut = "uncut" if layers == full.num_layers else \
+            f"cut from {full.num_layers} layers (dataclasses.replace(cfg, num_layers={layers}))"
+        print(f"[rglru-encdec] [{card}] {full.name} at depth {layers}, {cut}: {got:,} parameters "
+              f"initialised on the card in {time.perf_counter() - t0:.3f} s (seed {seed}; "
+              f"{what})")
+        return cfg, params, got
+
+    # recurrentgemma-2b: served uncut, trained at 4 layers
+    full = get("recurrentgemma-2b")
+    rec: dict = {"published_layers": full.num_layers, "serve_layers": full.num_layers,
+                 "train_layers": P15_RG_TRAIN_LAYERS, "dtype": full.dtype}
+    cfg, params, rec["serve_parameters"] = build(full, full.num_layers, P15_RG_PARAMS, "serve")
+    _p13_serve(torch, dev, card, cfg, params, seed, rec, tag="rglru-encdec")
+    del params
+    torch.cuda.empty_cache()
+    cfg, params, rec["train_parameters"] = build(full, P15_RG_TRAIN_LAYERS, P15_RG_TRAIN_PARAMS,
+                                                 "train")
+    holder = [params]
+    del params  # the training state takes them over
+    _p13_train(torch, dev, card, cfg, holder, seed, rec, tag="rglru-encdec")
+    torch.cuda.empty_cache()
+    out["models"]["recurrentgemma-2b"] = rec
+
+    # whisper-base: uncut, served and trained
+    full = get("whisper-base")
+    rec = {"published_layers": full.num_layers, "encoder_layers": full.encoder.num_layers,
+           "dtype": full.dtype}
+    cfg, params, rec["parameters"] = build(full, full.num_layers, P15_WHISPER_PARAMS,
+                                           "serve and train")
+    check(("enc_proj" in params) == (cfg.encoder.frontend_dim != cfg.d_model),
+          "whisper-base: enc_proj exists only where frontend_dim != d_model")
+    _p13_serve(torch, dev, card, cfg, params, seed, rec, tag="rglru-encdec")
+    holder = [params]
+    del params
+    _p13_train(torch, dev, card, cfg, holder, seed, rec, tag="rglru-encdec")
+    torch.cuda.empty_cache()
+    out["models"]["whisper-base"] = rec
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["rglru_encdec"] = out
+    print(f"[rglru-encdec] [{card}] phase 15: {out['phase_s']:.3f} s")
 
 
 def run(report: dict, seed: int = 0) -> None:
@@ -3348,6 +3468,9 @@ def run(report: dict, seed: int = 0) -> None:
     # -- 14. xLSTM and the vision stub at the published width
     xlstm_vlm_phase(torch, dev, card, report, seed)
     phase_done("14 xlstm-vlm")
+    # -- 15. RG-LRU and the encoder-decoder at the published width
+    rglru_encdec_phase(torch, dev, card, report, seed)
+    phase_done("15 rglru-encdec")
     report["phase_s"] = seconds
     print(f"[phases] all: {sum(seconds.values()):.3f} s")
     report["times"] = [

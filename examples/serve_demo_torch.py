@@ -3,8 +3,9 @@
 The twin of ``examples/serve_demo.py``.
 
 LM mode (default): prefill + decode loop on a smoke-sized architecture
-(a subprocess over ``repro_torch.launch.serve --arch A --smoke``; an
-architecture the port does not have yet exits naming its slice).
+(a subprocess over ``repro_torch.launch.serve --arch A --smoke``; any of
+the ten, e.g. ``--arch recurrentgemma-2b``, or ``--arch whisper-base``
+with its stub frames through the encoder).
 
 GP mode (--gp): fit the partitioned surface, SAVE the artifact, then serve
 query batches from the loaded artifact (``Server.from_artifact``; no
@@ -12,7 +13,7 @@ retraining on the serving path). ``--sharded`` serves the halo program
 through the overlapped pipeline (one slots-kernel launch a request on
 CUDA).
 
-  PYTHONPATH=src python examples/serve_demo_torch.py [--arch deepseek-moe-16b] [--device cpu]
+  PYTHONPATH=src python examples/serve_demo_torch.py [--arch recurrentgemma-2b] [--device cpu]
   PYTHONPATH=src python examples/serve_demo_torch.py --gp [--sharded] [--device cpu]
 """
 import argparse

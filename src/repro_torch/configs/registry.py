@@ -1,9 +1,7 @@
 """Architecture registry: ``get(arch_id)`` -> (full config, smoke config).
 
 Copy of ``repro.configs.registry`` over the port's copies of the ten
-architecture files. Every ``get`` works (the configs are data); a model
-whose blocks the port does not have yet raises in
-``repro_torch.models.transformer.init_model_params``, naming its slice.
+architecture files; the port builds, serves and trains all ten.
 
 Every assigned architecture is a module exposing ``FULL`` (the exact
 published configuration, citation included) and ``smoke()`` (a reduced

@@ -79,23 +79,29 @@ def lm_prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
 
 def lm_request(cfg, batch: int, prompt_len: int, seed: int):
     """The JAX CLI's inputs from one ``default_rng(seed)``: the prompts,
-    then, for a VLM, the stub patch embeddings (batch, num_patches,
-    vit_dim) float32 drawn after them (None otherwise)."""
+    then, for an encoder-decoder, the stub frame embeddings (batch,
+    num_frames, frontend_dim), then, for a VLM, the stub patch embeddings
+    (batch, num_patches, vit_dim), both float32 (None where the config has
+    no such stub). Returns (prompts, frames, patches)."""
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
-    patches = None
+    frames = patches = None
+    if cfg.encoder is not None:
+        e = cfg.encoder
+        frames = rng.normal(size=(batch, e.num_frames, e.frontend_dim)).astype(np.float32)
     if cfg.vision is not None:
         v = cfg.vision
         patches = rng.normal(size=(batch, v.num_patches, v.vit_dim)).astype(np.float32)
-    return prompts, patches
+    return prompts, frames, patches
 
 
 def generate(params, cfg, prompts, gen: int, *, temperature: float = 0.0,
-             generator=None, patches=None) -> dict:
-    """Prefill ``prompts`` (B, S) on their device (a VLM's ``patches``
-    prepended: the cache and the decode positions count them), then
-    ``gen - 1`` decode steps: the first token greedy, as the JAX CLI's,
-    the rest greedy at ``temperature`` 0, else sampled with
+             generator=None, frames=None, patches=None) -> dict:
+    """Prefill ``prompts`` (B, S) on their device (an encoder-decoder's
+    ``frames`` through the encoder; a VLM's ``patches`` prepended: the
+    cache and the decode positions count them), then ``gen - 1`` decode
+    steps without frames or patches: the first token greedy, as the JAX
+    CLI's, the rest greedy at ``temperature`` 0, else sampled with
     ``generator``. Returns the (B, gen) tokens, the last step's logits and
     both phases' seconds, each timed to a synchronize."""
     import torch
@@ -110,7 +116,7 @@ def generate(params, cfg, prompts, gen: int, *, temperature: float = 0.0,
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, prompts, patches)
+    logits, cache = prefill(params, prompts, frames=frames, patches=patches)
     tok = torch.argmax(logits, dim=-1)[:, None]
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -144,14 +150,18 @@ def serve_lm(args) -> None:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_model_params(gen, cfg)
     B, S = args.batch, args.prompt_len
-    prompts, patches = lm_request(cfg, B, S, args.seed)
+    prompts, frames, patches = lm_request(cfg, B, S, args.seed)
     prompts = torch.from_numpy(prompts).to(dev)
+    if frames is not None:
+        frames = torch.from_numpy(frames).to(dev)
     if patches is not None:
         patches = torch.from_numpy(patches).to(dev)
     out = generate(params, cfg, prompts, args.gen, temperature=args.temperature, generator=gen,
-                   patches=patches)
+                   frames=frames, patches=patches)
     t_prefill, t_dec = out["prefill_s"], out["decode_s"]
     print(f"arch={cfg.name} device={dev} dtype={cfg.dtype}")
+    if frames is not None:
+        print(f"frames: {B}x{frames.shape[1]} x {frames.shape[2]} through the encoder")
     if patches is not None:
         print(f"patches: {B}x{patches.shape[1]} x {patches.shape[2]} prepended")
     print(f"prefill: {B}x{S} tokens in {t_prefill * 1e3:.1f} ms "
@@ -190,10 +200,7 @@ def main() -> None:
             ap.error("--arch required (or --gp for the PSVGP surface)")
         if min(args.batch, args.prompt_len, args.gen) < 1:
             ap.error("--batch, --prompt-len and --gen must be >= 1")
-        try:
-            serve_lm(args)
-        except NotImplementedError as e:
-            ap.exit(2, f"--arch {args.arch}: {e}\n")
+        serve_lm(args)
         return
     if args.gp_requests < 1 or args.gp_batch < 1:
         ap.error("--gp-requests and --gp-batch must be >= 1")

@@ -10,10 +10,11 @@ steps.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --steps 50 --batch 8 --seq 128 [--smoke] [--device cpu]
 
-A VLM's batches carry stub ``"patches"`` drawn as JAX's CLI draws them.
-``--ckpt-dir`` resumes from the latest checkpoint there (either package's)
-and continues the token and patch streams and the step count where the
-saved state stopped; JAX's CLI restarts them at 0. The mesh of JAX's CLI
+An encoder-decoder's batches carry stub ``"frames"`` and a VLM's stub
+``"patches"``, drawn as JAX's CLI draws them. ``--ckpt-dir`` resumes from
+the latest checkpoint there (either package's) and continues the token
+and stub streams and the step count where the saved state stopped; JAX's
+CLI restarts them at 0. The mesh of JAX's CLI
 (``make_host_mesh``, ``state_pspecs``) waits for the sharding slice.
 """
 from __future__ import annotations
@@ -24,31 +25,36 @@ import time
 import numpy as np
 
 
-def device_batch(tokens: np.ndarray, targets: np.ndarray, device,
-                 patches: np.ndarray | None = None) -> dict:
+def device_batch(tokens: np.ndarray, targets: np.ndarray, device, *,
+                 frames: np.ndarray | None = None, patches: np.ndarray | None = None) -> dict:
     """One (tokens, targets) pair of ``synthetic_token_batches`` on
-    ``device``, with a VLM's stub ``patches`` when given."""
+    ``device``, with an encoder-decoder's stub ``frames`` and a VLM's stub
+    ``patches`` when given."""
     import torch
 
-    batch = {"tokens": torch.from_numpy(tokens).to(device),
-             "targets": torch.from_numpy(targets).to(device)}
-    if patches is not None:
-        batch["patches"] = torch.from_numpy(patches).to(device)
-    return batch
+    batch = {"tokens": tokens, "targets": targets, "frames": frames, "patches": patches}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items() if v is not None}
 
 
-def patch_stream(cfg, batch: int, seed: int, skip: int = 0):
-    """A VLM's stub patch embeddings for each step, as JAX's CLI draws
-    them: (batch, num_patches, vit_dim) float32 from one
-    ``default_rng(seed)``, the first ``skip`` draws discarded (a resumed
-    run continues the stream); None forever without a vision stub."""
+def stub_stream(cfg, batch: int, seed: int, skip: int = 0):
+    """(frames, patches) for each step, as JAX's CLI draws them from one
+    ``default_rng(seed)``: an encoder-decoder's (batch, num_frames,
+    frontend_dim), then a VLM's (batch, num_patches, vit_dim), float32,
+    None where the config has no such stub; the first ``skip`` steps'
+    draws discarded (a resumed run continues the stream)."""
     rng = np.random.default_rng(seed)
-    v = cfg.vision
-    shape = None if v is None else (batch, v.num_patches, v.vit_dim)
-    for _ in range(skip if shape else 0):
-        rng.normal(size=shape)
+    e, v = cfg.encoder, cfg.vision
+    shapes = ((batch, e.num_frames, e.frontend_dim) if e is not None else None,
+              (batch, v.num_patches, v.vit_dim) if v is not None else None)
+
+    def draw():
+        return tuple(None if sh is None else rng.normal(size=sh).astype(np.float32)
+                     for sh in shapes)
+
+    for _ in range(skip if any(shapes) else 0):
+        draw()
     while True:
-        yield None if shape is None else rng.normal(size=shape).astype(np.float32)
+        yield draw()
 
 
 def main() -> None:
@@ -81,10 +87,7 @@ def main() -> None:
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     print(f"arch={cfg.name} device={dev}")
-    try:
-        state = init_train_state(torch.Generator(device=dev).manual_seed(args.seed), cfg)
-    except NotImplementedError as e:
-        ap.exit(2, f"--arch {args.arch}: {e}\n")
+    state = init_train_state(torch.Generator(device=dev).manual_seed(args.seed), cfg)
     if args.ckpt_dir:
         restored = load_train_state(args.ckpt_dir, state)
         if restored is not None:
@@ -97,10 +100,10 @@ def main() -> None:
     start = int(state.step)
     data = synthetic_token_batches(cfg.vocab_size, args.batch, args.seq, seed=args.seed,
                                    num_batches=args.steps, start_row=start)
-    patches = patch_stream(cfg, args.batch, args.seed, skip=start)
+    stubs = stub_stream(cfg, args.batch, args.seed, skip=start)
     t0 = time.perf_counter()
-    for i, ((toks, targets), pt) in enumerate(zip(data, patches), start=start + 1):
-        state, metrics = step_fn(state, device_batch(toks, targets, dev, pt))
+    for i, ((toks, targets), (fr, pt)) in enumerate(zip(data, stubs), start=start + 1):
+        state, metrics = step_fn(state, device_batch(toks, targets, dev, frames=fr, patches=pt))
         if (i - start) % args.log_every == 0:
             loss, ce = float(metrics["loss"]), float(metrics["ce"])  # the one host read
             dt = time.perf_counter() - t0

@@ -3,8 +3,8 @@
 Port of the GQA half of ``repro.models.attention``: ``einsum`` logits in
 float32, a ``-1e30`` mask fill (not ``-inf``, so a fully masked row stays
 finite, as in JAX), a float32 softmax whose weights are cast back to the
-query dtype. Cross-attention (``encoder_kv``) comes with the encoder
-slice (``ROADMAP.md`` queue 1, item 6.6).
+query dtype. Cross-attention (``encoder_kv``): the queries of ``wq``
+alone (no bias, rope or qk-norm) against given keys and values, unmasked.
 
 MLA (Multi-head Latent Attention, DeepSeek-V2 / MiniCPM3) is the port of
 JAX's ``init_mla_params`` / ``mla_forward`` / ``init_mla_cache``: train and
@@ -138,6 +138,7 @@ def gqa_forward(
     window: int = 0,
     cache: Params | None = None,
     cache_pos: torch.Tensor | int | None = None,
+    encoder_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, Params | None]:
     """One attention call.
 
@@ -145,12 +146,21 @@ def gqa_forward(
       train: cache None — the full sequence, causal (windowed) mask;
       prefill: x (B, S > 1, D), cache allocated — attend within the prompt
         and fill the cache;
-      decode: x (B, 1, D), cache holds history, cache_pos = current length.
+      decode: x (B, 1, D), cache holds history, cache_pos = current length;
+      cross-attention: encoder_kv (k, v), each (B, T, KV, hd), given — no
+        cache, no causal mask (returns None for the cache).
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt = x.dtype
     dev = x.device
+
+    if encoder_kv is not None:
+        k, v = encoder_kv
+        q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
+        mask = torch.ones((S, k.shape[1]), dtype=torch.bool, device=dev)
+        out = _sdpa(q, k, v, mask, KV)
+        return out.reshape(B, S, H * hd) @ p["wo"].to(dt), None
 
     q, k, v = _qkv(p, cfg, x)
     if cfg.pos_kind == "rope":

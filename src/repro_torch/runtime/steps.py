@@ -50,6 +50,7 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 def _loss_fn(params, cfg: ModelConfig, batch: dict[str, torch.Tensor]):
     logits, _, aux = transformer.forward(params, cfg, batch["tokens"],
+                                         frames=batch.get("frames"),
                                          patches=batch.get("patches"))
     targets = batch["targets"]
     if logits.shape[1] != targets.shape[1]:
@@ -106,16 +107,18 @@ def make_train_step(
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int):
-    """Prompt (and a VLM's patches, prepended) -> (last-token logits, filled
-    cache); ``cache_len`` counts the patches' positions too."""
+    """Prompt (an encoder-decoder's frames through the encoder, a VLM's
+    patches prepended) -> (last-token logits, filled cache); ``cache_len``
+    counts the patches' positions too. The step's signature is JAX's,
+    ``(params, tokens, frames=None, patches=None)``."""
     serve_cfg = dataclasses.replace(cfg, remat=False)
 
     @torch.no_grad()
-    def prefill_step(params, tokens, patches=None):
+    def prefill_step(params, tokens, frames=None, patches=None):
         cache = transformer.init_cache(serve_cfg, tokens.shape[0], cache_len,
                                        transformer.torch_dtype(serve_cfg.dtype), tokens.device)
-        logits, cache, _ = transformer.forward(params, serve_cfg, tokens, patches=patches,
-                                               cache=cache, cache_pos=0)
+        logits, cache, _ = transformer.forward(params, serve_cfg, tokens, frames=frames,
+                                               patches=patches, cache=cache, cache_pos=0)
         return logits[:, -1], cache
 
     return prefill_step

@@ -15,13 +15,13 @@ one-process program and under ``torchrun`` on the mesh lane (each
 assertion carrying the command's return code and both streams' tails),
 and the lane's teardown (``serve_sharded.close_mesh_group``) in process;
 the refusals
-(``--arch`` of an unported architecture, ``--sharded`` or ``--http``
-without ``--gp``, no GPU without ``--device cpu``); ``--help`` of every
-new CLI touching no CUDA state and no process group; each
-``examples/*_torch.py`` twin (``serve_demo_torch.py`` in its LM mode, the
-default, and under ``--gp``; an unported ``--arch`` exits naming its
-slice); ``launch.serve --arch`` and ``launch.train --arch`` at ``--smoke``
-for the MoE, MLA, xLSTM and VLM architectures.
+(``--sharded`` or ``--http`` without ``--gp``, no GPU without ``--device
+cpu``); ``--help`` of every new CLI touching no CUDA state and no
+process group; each ``examples/*_torch.py`` twin (``serve_demo_torch.py``
+in its LM mode, the default, on recurrentgemma-2b and on whisper-base,
+and under ``--gp``); ``launch.serve --arch`` and ``launch.train --arch``
+at ``--smoke`` for the MoE, MLA, xLSTM, VLM, RG-LRU and encoder-decoder
+architectures.
 """
 from __future__ import annotations
 
@@ -241,13 +241,11 @@ def test_serve_gp_http_answers_a_request(tmp_path):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--arch", "recurrentgemma-2b", "--smoke", "--device", "cpu"],
-     "RG-LRU blocks: ROADMAP.md queue 1, item 6.4"),
     (["--sharded"], "add --gp"),
     (["--http"], "add --gp"),
     ([], "--arch required (or --gp"),
     (["--gp", "--gp-requests", "0"], "must be >= 1"),
-], ids=["arch", "sharded-without-gp", "http-without-gp", "nothing", "zero-requests"])
+], ids=["sharded-without-gp", "http-without-gp", "nothing", "zero-requests"])
 def test_serve_refuses(argv, needle):
     r = _run(["-m", "repro_torch.launch.serve", *argv], timeout=120)
     assert r.returncode != 0 and needle in r.stderr, r.stderr[-2000:]
@@ -337,23 +335,21 @@ def test_help_touches_no_cuda_state_and_no_process_group(target):
       "--iters", "20", "--requests", "3", "--batch", "64"], "sharded/pipelined"),
     (["examples/serve_demo_torch.py", "--arch", "deepseek-moe-16b", "--prompt-len", "16",
       "--gen", "4"], "arch=deepseek-moe-16b-smoke device=cpu"),
+    (["examples/serve_demo_torch.py", "--arch", "recurrentgemma-2b", "--prompt-len", "16",
+      "--gen", "4"], "arch=recurrentgemma-2b-smoke device=cpu"),
+    (["examples/serve_demo_torch.py", "--arch", "whisper-base", "--prompt-len", "16",
+      "--gen", "4"], "frames: 4x20 x 64 through the encoder"),
     (["examples/lm_train_torch.py", "--steps", "20", "--batch", "2", "--seq", "32"],
      "step    20  loss"),
 ], ids=["quickstart", "delta_sweep", "delta_sweep-ppermute", "e3sm_insitu", "serve_demo",
-        "serve_demo-sharded", "serve_demo-lm", "lm_train"])
+        "serve_demo-sharded", "serve_demo-lm", "serve_demo-rglru", "serve_demo-whisper",
+        "lm_train"])
 def test_example_twin_runs_on_the_cpu(argv, needle):
     r = _run([*argv, "--device", "cpu"], timeout=180)
     assert r.returncode == 0, r.stderr[-3000:]
     assert needle in r.stdout
     nums = [float(v) for v in re.findall(r"(?:RMSPE|RMSD)\s*:?\s*\|?\s*([0-9.]+)", r.stdout)]
     assert all(np.isfinite(nums))
-
-
-def test_serve_demo_twin_refuses_an_unported_arch_naming_its_slice():
-    r = _run(["examples/serve_demo_torch.py", "--arch", "whisper-base", "--device", "cpu"],
-             timeout=120)
-    assert r.returncode == 2, r.stderr[-2000:]
-    assert "the encoder-decoder: ROADMAP.md queue 1, item 6.6" in r.stderr
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-30b-a3b", "minicpm3-4b"])
@@ -376,6 +372,20 @@ def test_lm_clis_serve_and_train_the_xlstm_and_vlm_smoke_configs(arch):
     assert r.returncode == 0, r.stderr[-3000:]
     assert f"arch={arch}-smoke device=cpu" in r.stdout and "decode: 4 steps x 4 seqs" in r.stdout
     assert ("patches: 4x8 x 96 prepended" in r.stdout) == (arch == "internvl2-76b")
+    r = _run(["-m", "repro_torch.launch.train", "--arch", arch, "--smoke", "--device", "cpu",
+              "--steps", "2", "--batch", "2", "--seq", "16", "--log-every", "1"], timeout=180)
+    assert r.returncode == 0, r.stderr[-3000:]
+    losses = [float(v) for v in re.findall(r"loss ([0-9.]+)", r.stdout)]
+    assert len(losses) == 2 and np.isfinite(losses).all() and "done." in r.stdout
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "whisper-base"])
+def test_lm_clis_serve_and_train_the_rglru_and_encdec_smoke_configs(arch):
+    r = _run(["-m", "repro_torch.launch.serve", "--arch", arch, "--smoke", "--device", "cpu",
+              "--prompt-len", "16", "--gen", "4", "--temperature", "0"], timeout=180)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert f"arch={arch}-smoke device=cpu" in r.stdout and "decode: 4 steps x 4 seqs" in r.stdout
+    assert ("frames: 4x20 x 64 through the encoder" in r.stdout) == (arch == "whisper-base")
     r = _run(["-m", "repro_torch.launch.train", "--arch", arch, "--smoke", "--device", "cpu",
               "--steps", "2", "--batch", "2", "--seq", "16", "--log-every", "1"], timeout=180)
     assert r.returncode == 0, r.stderr[-3000:]

@@ -4,11 +4,10 @@ Same parameters in both packages (JAX's ``init_model_params`` carried
 across with ``models.transformer.params_from_numpy``), same seeded numpy
 tokens:
 
-  * every config copy equals JAX's, field by field; the architectures
-    whose blocks are not ported yet still ``get()``, and raise in
-    ``init_model_params`` / ``init_cache`` naming their slice; the MoE,
-    MLA, xLSTM and VLM smoke configs build, serve and take a training
-    step;
+  * every config copy equals JAX's, field by field; all ten
+    architectures build (parameters, cache, train state) and run a smoke
+    forward; the MoE, MLA, xLSTM, VLM, RG-LRU and encoder-decoder smoke
+    configs build, serve and take a training step;
   * ``forward`` equals JAX's for the dense test configs of
     ``tests/test_models.py`` (qk-norm + QKV bias, sliding window), the smoke
     configs of qwen3-0.6b, qwen2-0.5b and h2o-danube-3-4b, and a two-kind
@@ -144,20 +143,35 @@ def test_registry_copy():
                      num_kv_heads=2, d_ff=8, vocab_size=8)
 
 
-@pytest.mark.parametrize("arch,slice_", [
-    ("recurrentgemma-2b", "RG-LRU blocks: ROADMAP.md queue 1, item 6.4"),
-    ("whisper-base", "the encoder-decoder: ROADMAP.md queue 1, item 6.6"),
-])
-def test_unported_architectures_raise_naming_their_slice(arch, slice_):
+@pytest.mark.parametrize("arch", treg.ARCH_IDS)
+def test_every_architecture_builds_and_runs_a_smoke_forward(arch):
+    """All ten architectures of the registry: ``init_model_params``,
+    ``init_cache``, ``init_train_state`` and one uncached forward at the
+    smoke config, finite on the CPU (an encoder-decoder with its frames, a
+    VLM with its patches)."""
     cfg = treg.get_smoke(arch)
-    assert treg.get(arch).name == jreg.get(arch).name  # get() works: the config is data
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match=slice_):
-        tt.init_model_params(gen, cfg)
-    with pytest.raises(NotImplementedError, match=slice_):
-        tt.init_cache(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match=slice_):
-        tsteps.init_train_state(gen, cfg)
+    assert treg.get(arch).name == jreg.get(arch).name
+    params = tt.init_model_params(torch.Generator().manual_seed(0), cfg)
+    assert all(bool(torch.isfinite(a).all()) for a in tree_leaves(params))
+    cache = tt.init_cache(cfg, 2, 24, torch.float32)
+    assert all(bool(torch.isfinite(a).all()) for a in tree_leaves(cache))
+    assert any("cross_k" in p for p in flatten(cache)) == (cfg.encoder is not None)
+    state = tsteps.init_train_state(torch.Generator().manual_seed(0), cfg)
+    assert state.step == 0 and len(tree_leaves(state.opt.mu)) == len(tree_leaves(params))
+    toks = torch.from_numpy(_tokens(cfg, (2, 16), 0))
+    gen = torch.Generator().manual_seed(1)
+    kw = {}
+    if cfg.encoder is not None:
+        kw["frames"] = torch.randn((2, cfg.encoder.num_frames, cfg.encoder.frontend_dim),
+                                   generator=gen)
+    if cfg.vision is not None:
+        kw["patches"] = torch.randn((2, cfg.vision.num_patches, cfg.vision.vit_dim),
+                                    generator=gen)
+    with torch.no_grad():
+        logits, _, aux = tt.forward(params, cfg, toks, **kw)
+    P = cfg.vision.num_patches if cfg.vision is not None else 0
+    assert logits.shape == (2, P + 16, cfg.padded_vocab_size)
+    assert bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()) and bool(torch.isfinite(aux))
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-30b-a3b", "minicpm3-4b"])
@@ -195,9 +209,32 @@ def test_xlstm_and_vlm_smoke_configs_serve_and_train(arch):
         batch["patches"] = torch.randn((2, P, cfg.vision.vit_dim),
                                        generator=torch.Generator().manual_seed(1))
     logits, cache = tsteps.make_prefill_step(cfg, P + 20)(state.params, toks,
-                                                          batch.get("patches"))
+                                                          patches=batch.get("patches"))
     assert logits.shape == (2, cfg.padded_vocab_size) and bool(torch.isfinite(logits).all())
     logits, cache = tsteps.make_decode_step(cfg)(state.params, cache, P + 16, toks[:, :1])
+    assert bool(torch.isfinite(logits).all())
+    new, metrics = tsteps.make_train_step(cfg)(state, batch)
+    assert new.step == 1 and np.isfinite(float(metrics["loss"])) and float(metrics["aux"]) == 0
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "whisper-base"])
+def test_rglru_and_encdec_smoke_configs_serve_and_train(arch):
+    """The architectures slice 13 brought (RG-LRU, the encoder-decoder)
+    prefill (whisper with its frames), decode (without them) and take a
+    training step at their smoke configs; parity with JAX is in
+    tests/test_torch_rglru.py and tests/test_torch_encdec.py."""
+    cfg = treg.get_smoke(arch)
+    state = tsteps.init_train_state(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(_tokens(cfg, (2, 20), 0))
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    if cfg.encoder is not None:
+        e = cfg.encoder
+        batch["frames"] = torch.randn((2, e.num_frames, e.frontend_dim),
+                                      generator=torch.Generator().manual_seed(1))
+    logits, cache = tsteps.make_prefill_step(cfg, 24)(state.params, toks,
+                                                      frames=batch.get("frames"))
+    assert logits.shape == (2, cfg.padded_vocab_size) and bool(torch.isfinite(logits).all())
+    logits, cache = tsteps.make_decode_step(cfg)(state.params, cache, 20, toks[:, :1])
     assert bool(torch.isfinite(logits).all())
     new, metrics = tsteps.make_train_step(cfg)(state, batch)
     assert new.step == 1 and np.isfinite(float(metrics["loss"])) and float(metrics["aux"]) == 0

@@ -13,7 +13,7 @@ tokens and patches:
   * one AdamW step with patches in the batch equals JAX's;
   * the serve CLI's inputs (``launch.serve.lm_request``: prompts, then
     patches, from one ``default_rng``) and the train CLI's patch stream
-    (``launch.train.patch_stream``, resumed too) are JAX's draws bitwise;
+    (``launch.train.stub_stream``, resumed too) are JAX's draws bitwise;
   * internvl2-76b's smoke config: its parameter tree is JAX's key for key.
 
 Tolerances: ``tests/test_torch_lm.py``'s — float32 5e-5 x max(1,
@@ -43,7 +43,7 @@ from repro.runtime import steps as jsteps
 from repro_torch.checkpoint.checkpoint import flatten
 from repro_torch.configs import registry as treg
 from repro_torch.launch.serve import generate, lm_request
-from repro_torch.launch.train import patch_stream
+from repro_torch.launch.train import stub_stream
 from repro_torch.models import transformer as tt
 from repro_torch.models.config import ModelConfig as TModelConfig
 from repro_torch.models.config import VisionStubConfig as TVision
@@ -133,7 +133,7 @@ def test_prefill_with_patches_then_decode_matches_jax_and_the_uncached_forward()
     jlg, jcache = jsteps.make_prefill_step(jc, cache_len)(jp, jnp.asarray(toks),
                                                           patches=jnp.asarray(patches))
     tlg, tcache = tsteps.make_prefill_step(tc, cache_len)(tp, torch.from_numpy(toks),
-                                                          torch.from_numpy(patches))
+                                                          patches=torch.from_numpy(patches))
     _close(tlg, jlg)
     outs = []
     for i in range(4):
@@ -173,7 +173,8 @@ def test_one_train_step_with_patches_matches_jax():
 
 def test_serve_cli_draws_the_jax_clis_prompts_and_patches():
     cfg = treg.get_smoke("internvl2-76b")
-    prompts, patches = lm_request(cfg, 3, 16, seed=7)
+    prompts, frames, patches = lm_request(cfg, 3, 16, seed=7)
+    assert frames is None  # no encoder: the patches follow the prompts
     # src/repro/launch/serve.py:136-144
     rng = np.random.default_rng(7)
     want_p = np.asarray(jnp.asarray(rng.integers(0, cfg.vocab_size, (3, 16)), jnp.int32))
@@ -182,7 +183,7 @@ def test_serve_cli_draws_the_jax_clis_prompts_and_patches():
     np.testing.assert_array_equal(prompts, want_p)
     np.testing.assert_array_equal(patches, want_x)
     assert patches.dtype == np.float32
-    assert lm_request(treg.get_smoke("qwen3-0.6b"), 3, 16, seed=7)[1] is None
+    assert lm_request(treg.get_smoke("qwen3-0.6b"), 3, 16, seed=7)[1:] == (None, None)
 
 
 def test_train_cli_patch_stream_is_the_jax_clis_and_resumes():
@@ -192,12 +193,14 @@ def test_train_cli_patch_stream_is_the_jax_clis_and_resumes():
     rng = np.random.default_rng(3)
     want = [np.asarray(jnp.asarray(rng.normal(size=(2, v.num_patches, v.vit_dim)), jnp.float32))
             for _ in range(4)]
-    got = patch_stream(cfg, 2, 3)
+    got = stub_stream(cfg, 2, 3)
     for w in want:
-        np.testing.assert_array_equal(next(got), w)
-    resumed = patch_stream(cfg, 2, 3, skip=2)
-    np.testing.assert_array_equal(next(resumed), want[2])
-    assert next(patch_stream(treg.get_smoke("qwen3-0.6b"), 2, 3)) is None
+        frames, patches = next(got)
+        assert frames is None
+        np.testing.assert_array_equal(patches, w)
+    resumed = stub_stream(cfg, 2, 3, skip=2)
+    np.testing.assert_array_equal(next(resumed)[1], want[2])
+    assert next(stub_stream(treg.get_smoke("qwen3-0.6b"), 2, 3)) == (None, None)
 
 
 def test_generate_prepends_the_patches_on_the_cpu():
@@ -236,7 +239,8 @@ def test_full_width_vlm_decode_on_the_card_matches_its_uncached_forward():
     gen = torch.Generator(dev).manual_seed(1)
     toks = torch.randint(0, tc.vocab_size, (1, 72), generator=gen, device=dev)
     patches = torch.randn((1, v.num_patches, v.vit_dim), generator=gen, device=dev)
-    _, cache = tsteps.make_prefill_step(tc, v.num_patches + 72)(tp, toks[:, :64], patches)
+    _, cache = tsteps.make_prefill_step(tc, v.num_patches + 72)(tp, toks[:, :64],
+                                                                  patches=patches)
     dec = tsteps.make_decode_step(tc)
     outs = []
     for i in range(8):
