@@ -180,6 +180,23 @@ Phases, each printed as it runs; any failure exits non-zero:
               AdamW steps on one 8 x 256 batch falling (whisper's batches
               with their frames), 5 timed steps on CUDA events, peak
               memory.
+ 16. dryrun   the dry-run (repro_torch.launch.dryrun: the port's steps on
+              fake tensors, every leaf a DTensor shard over a fake process
+              group of 256 or 512 ranks, on the host): the JAX package's
+              tests/test_dryrun.py cases (qwen3-0.6b train_4k,
+              recurrentgemma-2b long_500k, whisper-base decode_32k,
+              deepseek-moe-16b prefill_32k on 2 x 16 x 16, and --psvgp)
+              as concurrent subprocesses, each record held to that test's
+              asserts; then the tracer's accounting against phase 12's
+              steps on the card: qwen3-0.6b's 8 x 256 train step and batch-4
+              decode step traced on a 1 x 1 mesh, their FLOPs equal to
+              FlopCounterMode on the real step and their argument bytes to
+              the real inputs', exactly, the trace's peak within
+              P16_PEAK_BAND of the step's own CUDA peak, and phase 12's
+              measured step no faster than the roofline's largest term /
+              1.05; and rank 0's PSVGP step of the 16 x 16 grid on the
+              card under the 256-rank group: one projection launch, the
+              CPU trace's collectives.
 
 Each phase's seconds are printed as "[phases] <phase>: <s> s".
 
@@ -2505,6 +2522,8 @@ def lm_phase(torch, dev, card: str, report: dict, seed: int) -> None:
         rec["train_device_busy_share"] = None
         print(f"[lm] [{card}] train step device busy share: not measured (torch.profiler saw "
               "no device activity)")
+    # phase 16's real side, on this model: one train and one decode step
+    rec["accounting"] = real_step_accounting(torch, cfg, state, step, batch, prompts)
     del state, batch
     torch.cuda.empty_cache()
 
@@ -3113,6 +3132,200 @@ def rglru_encdec_phase(torch, dev, card: str, report: dict, seed: int) -> None:
     print(f"[rglru-encdec] [{card}] phase 15: {out['phase_s']:.3f} s")
 
 
+# --------------------------------------------------------------------------
+# 16. the dry-run: the JAX tests' cases on the production meshes (fake
+#     tensors over a fake process group, on the host), and the tracer's
+#     accounting held against phase 12's steps on the card
+# --------------------------------------------------------------------------
+
+P16_CASES = (  # tests/test_dryrun.py:16-21, and its PSVGP case
+    ("qwen3_0_6b", "train_4k", ()),
+    ("recurrentgemma_2b", "long_500k", ()),
+    ("whisper_base", "decode_32k", ()),
+    ("deepseek_moe_16b", "prefill_32k", ("--multi-pod",)),
+    ("psvgp", "ppermute", ()),
+)
+P16_TIMEOUT_S = 300
+# the trace's peak_est over the real step's own CUDA peak (the card's other
+# live bytes taken off): the band measured on the H100 (PERF.md §6)
+P16_PEAK_BAND = (0.95, 1.05)
+P16_ROOFLINE_SLACK = 1.05
+
+
+def real_step_accounting(torch, cfg, state, step, batch, prompts) -> dict:
+    """Phase 16's real side on phase 12's model: one train step on ``batch``
+    and one decode step (batch LM_BATCH against a cache of LM_PROMPT +
+    LM_GEN positions, the position a device tensor) under
+    ``FlopCounterMode``: their FLOPs, their inputs' bytes and the CUDA
+    memory each step peaks at, less the bytes live on the card beside its
+    inputs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.hlo_analysis import _tensors
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+
+    def nbytes(tree) -> int:
+        return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+    def measure(fn, args) -> dict:
+        torch.cuda.synchronize()
+        other = torch.cuda.memory_allocated() - nbytes(args)
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as counter:
+            out = fn(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - other
+        del out
+        return {"flops": counter.get_total_flops(), "arguments": nbytes(args),
+                "peak_bytes": peak}
+
+    out = {"train": measure(step, (state, batch))}
+    _, cache = make_prefill_step(cfg, cache_len=LM_PROMPT + LM_GEN)(state.params, prompts)
+    pos = torch.tensor(LM_PROMPT, device=prompts.device)
+    out["decode"] = measure(make_decode_step(cfg),
+                            (state.params, cache, pos, prompts[:, :1].contiguous()))
+    return out
+
+
+def p16_commands(out_dir: str) -> list:
+    cmds = []
+    for arch, shape, extra in P16_CASES:
+        out = os.path.join(out_dir, f"{arch}.{shape}.jsonl")
+        args = (["--psvgp", "--comm", shape] if arch == "psvgp"
+                else ["--arch", arch, "--shape", shape, *extra])
+        cmds.append(((arch, shape, extra), out,
+                     [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", out]))
+    return cmds
+
+
+def p16_check_record(case, rec: dict) -> str:
+    """JAX's tests/test_dryrun.py asserts on one record; a line for the log."""
+    arch, shape, extra = case
+    check(rec["flops_per_device"] > 0 or arch == "psvgp", f"dryrun {case}: no FLOPs")
+    check(rec["roofline_s"]["memory"] > 0, f"dryrun {case}: no memory term")
+    check(rec["dominant"] in ("compute", "memory", "collective"), f"dryrun {case}: dominant")
+    if extra:
+        check(rec["chips"] == 512, f"dryrun {case}: {rec['chips']} chips, not 512")
+    if arch == "psvgp":
+        check(rec["chips"] == 256, f"dryrun psvgp: {rec['chips']} chips")
+        check("collective-permute" in rec["collective_breakdown"],
+              f"dryrun psvgp: no collective-permute in {rec['collective_breakdown']}")
+        check(rec["collective_bytes_per_device"] < 10e6,
+              f"dryrun psvgp: {rec['collective_bytes_per_device']} collective bytes a device")
+    else:
+        check(rec["arch"] == arch and rec["shape"] == shape, f"dryrun {case}: record {rec}")
+    mem = rec["bytes_per_device"]
+    return (f"{rec['arch']} {rec['shape']} on {rec['mesh']} ({rec['chips']} ranks): traced in "
+            f"{rec['compile_s']} s, peak_est {mem['peak_est'] / 1e9:.3f} GB a device, "
+            f"{rec['flops_per_device']:.4e} FLOPs a device, collectives "
+            f"{rec['collective_breakdown']}, dominant {rec['dominant']}")
+
+
+def dryrun_phase(torch, dev, card: str, report: dict) -> None:
+    """Phase 16 (see the module docstring)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels import svgp_proj
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import MeshSpec, make_production_mesh
+
+    t_phase = time.perf_counter()
+    rec: dict = {}
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- 16a. the JAX tests' cases, concurrent subprocesses on the host
+        procs = []
+        for case, out, cmd in p16_commands(tmp):
+            with open(out + ".log", "w") as log:
+                procs.append((case, out, subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log,
+                                                          stderr=subprocess.STDOUT)))
+        try:
+            # -- 16b. the accounting against phase 12's steps on the card ---
+            real = report["lm"]["accounting"]
+            cfg = get(LM_ARCH)
+            mesh1 = MeshSpec(("data", "model"), (1, 1))
+            shapes = {"train": InputShape(LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train"),
+                      "decode": InputShape(LM_PROMPT + LM_GEN, LM_BATCH, "decode")}
+            measured_ms = {"train": report["lm"]["train_ms"]["p50_ms"],
+                           "decode": report["lm"]["decode_ms_per_step"]}
+            for kind, sh in shapes.items():
+                t0 = time.perf_counter()
+                trace = dryrun.trace_combo(cfg, sh, mesh1)
+                trace_s = time.perf_counter() - t0
+                terms = hlo_analysis.roofline(trace)
+                bound_ms = 1e3 * max(terms.compute_s, terms.memory_s, terms.collective_s)
+                mem = trace.memory()
+                ratio = mem["peak_est"] / real[kind]["peak_bytes"]
+                rec[kind] = {"trace_s": trace_s, "trace_flops": trace.flops,
+                             "real_flops": real[kind]["flops"],
+                             "trace_arguments": trace.arguments,
+                             "real_arguments": real[kind]["arguments"],
+                             "peak_est": mem["peak_est"], "real_peak": real[kind]["peak_bytes"],
+                             "peak_ratio": ratio, "roofline_ms": {
+                                 "compute": 1e3 * terms.compute_s, "memory": 1e3 * terms.memory_s,
+                                 "collective": 1e3 * terms.collective_s},
+                             "measured_ms": measured_ms[kind]}
+                print(f"[dryrun] [{card}] {LM_ARCH} {kind} {sh.global_batch}x{sh.seq_len} on a "
+                      f"1x1 mesh, traced in {trace_s:.3f} s: FLOPs {trace.flops:,} (FlopCounterMode"
+                      f" on the card {real[kind]['flops']:,}); arguments {trace.arguments:,} B "
+                      f"(real {real[kind]['arguments']:,}); peak_est {mem['peak_est']:,} B against"
+                      f" the step's CUDA peak {real[kind]['peak_bytes']:,} B (ratio {ratio:.4f}, "
+                      f"band {P16_PEAK_BAND}); roofline compute {1e3 * terms.compute_s:.3f} / "
+                      f"memory {1e3 * terms.memory_s:.3f} / collective "
+                      f"{1e3 * terms.collective_s:.3f} ms against {measured_ms[kind]:.3f} ms "
+                      "measured (phase 12, p50)")
+                check(trace.flops == real[kind]["flops"],
+                      f"dryrun {kind}: trace FLOPs {trace.flops} != {real[kind]['flops']}")
+                check(trace.arguments == real[kind]["arguments"],
+                      f"dryrun {kind}: arguments {trace.arguments} != {real[kind]['arguments']}")
+                check(P16_PEAK_BAND[0] <= ratio <= P16_PEAK_BAND[1],
+                      f"dryrun {kind}: peak ratio {ratio} outside {P16_PEAK_BAND}")
+                check(measured_ms[kind] >= bound_ms / P16_ROOFLINE_SLACK,
+                      f"dryrun {kind}: {measured_ms[kind]} ms beats the roofline's {bound_ms} ms")
+
+            # -- 16c. the PSVGP rank step on the card under the 256-rank group
+            mesh = make_production_mesh()
+            cpu = dryrun.psvgp_rank_trace(mesh, "cpu")
+            svgp_proj.reset_launches()
+            gpu = dryrun.psvgp_rank_trace(mesh, "cuda")
+            torch.cuda.synchronize()
+            launches = svgp_proj.LAUNCHES["svgp_projection"]
+            kinds = hlo_analysis.collective_bytes(gpu)
+            rec["psvgp"] = {"launches": launches, "collectives": kinds,
+                            "cpu_collectives": hlo_analysis.collective_bytes(cpu)}
+            print(f"[dryrun] [{card}] PSVGP rank 0 of 256 (fake group) on the card: "
+                  f"{launches} projection launch, collectives {kinds} (the CPU trace "
+                  f"{rec['psvgp']['cpu_collectives']})")
+            check(launches == 1, f"dryrun psvgp: {launches} projection launches, not 1")
+            check(kinds == rec["psvgp"]["cpu_collectives"],
+                  "dryrun psvgp: the card's collectives differ from the CPU trace's")
+            check(kinds.get("collective-permute", 0) < 10e6, f"dryrun psvgp: {kinds}")
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for _, _, proc in procs:
+                try:
+                    proc.wait(timeout=P16_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        rec["cases"] = []
+        for case, out, proc in procs:
+            with open(out + ".log") as f:
+                log = f.read()
+            check(proc.returncode == 0,
+                  f"dryrun {case}: exit {proc.returncode}\n{log[-3000:]}")
+            line = open(out).read().strip().splitlines()[-1]
+            rep = json.loads(line)
+            rec["cases"].append(rep)
+            print(f"[dryrun] [{card}] {p16_check_record(case, rep)}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    report["dryrun"] = rec
+    print(f"[dryrun] [{card}] phase 16: {rec['phase_s']:.3f} s")
+
+
 def run(report: dict, seed: int = 0) -> None:
     import torch
 
@@ -3471,6 +3684,9 @@ def run(report: dict, seed: int = 0) -> None:
     # -- 15. RG-LRU and the encoder-decoder at the published width
     rglru_encdec_phase(torch, dev, card, report, seed)
     phase_done("15 rglru-encdec")
+    # -- 16. the dry-run on the host, its accounting against phase 12's steps
+    dryrun_phase(torch, dev, card, report)
+    phase_done("dryrun")
     report["phase_s"] = seconds
     print(f"[phases] all: {sum(seconds.values()):.3f} s")
     report["times"] = [

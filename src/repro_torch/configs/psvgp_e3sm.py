@@ -50,5 +50,10 @@ class E3SMExperiment:
 FULL = E3SMExperiment()
 
 
+# dry-run variant: grid == device grid (one partition per device)
+DRYRUN_SINGLE_POD = dataclasses.replace(FULL, grid=(16, 16))
+DRYRUN_MULTI_POD = dataclasses.replace(FULL, grid=(16, 32))  # 32 rows = pod x data
+
+
 def smoke() -> E3SMExperiment:
     return dataclasses.replace(FULL, n_obs=2000, grid=(4, 4), iters=100)

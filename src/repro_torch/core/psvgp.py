@@ -54,6 +54,7 @@ from repro_torch.core.sampler import (
 from repro_torch.gp.covariances import CovarianceParams, make_covariance
 from repro_torch.kernels import svgp_proj
 from repro_torch.optim import AdamState, adam_init, adam_update, tree_leaves, tree_map
+from repro_torch.sharding.dtensor import rows_local
 
 # eager steps that open a captured fit: real steps, and the capture's
 # warm-up on a side stream (lazy initialization stays out of the graph)
@@ -153,7 +154,9 @@ def train_step_gather(
     else:
         kprime, idx = draws
     bx, by, bm = gather_minibatch(x, y, mask, kprime, idx)
-    new, losses = _sgd_step(state, bx, by, bm, dist.n_eff, cfg, cov_fn)
+    # cell by cell: a sharded trace (the dry-run's) updates each rank's cells
+    new, losses = rows_local(lambda *a: _sgd_step(*a, cfg, cov_fn), state, bx, by, bm,
+                             dist.n_eff)
     return new, torch.mean(losses)
 
 

@@ -14,8 +14,11 @@ An encoder-decoder's batches carry stub ``"frames"`` and a VLM's stub
 ``"patches"``, drawn as JAX's CLI draws them. ``--ckpt-dir`` resumes from
 the latest checkpoint there (either package's) and continues the token
 and stub streams and the step count where the saved state stopped; JAX's
-CLI restarts them at 0. The mesh of JAX's CLI
-(``make_host_mesh``, ``state_pspecs``) waits for the sharding slice.
+CLI restarts them at 0. The mesh is JAX's CLI's: ``make_host_mesh()``
+(the devices this program drives, (1, 1) for one process) and the state's
+``state_pspecs`` on it, printed as ``mesh=`` and the count of leaves the
+rules shard; on one device every leaf is whole there, so the step runs
+as it is.
 """
 from __future__ import annotations
 
@@ -81,12 +84,16 @@ def main() -> None:
     from repro_torch.configs import get, get_smoke
     from repro_torch.data.tokens import synthetic_token_batches
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import tree_leaves
     from repro_torch.runtime.steps import init_train_state, make_train_step
+    from repro_torch.sharding import state_pspecs
+    from repro_torch.sharding.rules import leaf_specs
 
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
-    print(f"arch={cfg.name} device={dev}")
+    mesh = make_host_mesh()
+    print(f"arch={cfg.name} device={dev} mesh={mesh.shape}")
     state = init_train_state(torch.Generator(device=dev).manual_seed(args.seed), cfg)
     if args.ckpt_dir:
         restored = load_train_state(args.ckpt_dir, state)
@@ -95,6 +102,9 @@ def main() -> None:
             print(f"restored checkpoint at step {int(state.step)}")
     n_params = sum(leaf.numel() for leaf in tree_leaves(state.params))
     print(f"parameters: {n_params / 1e6:.2f}M")
+    specs = leaf_specs(state_pspecs(state, mesh).params)
+    print(f"sharding: {sum(any(e is not None for e in s) for s in specs)} of {len(specs)} "
+          f"parameter leaves sharded on mesh {mesh.label()}")
 
     step_fn = make_train_step(cfg, learning_rate=args.lr)
     start = int(state.step)

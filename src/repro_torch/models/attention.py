@@ -39,6 +39,7 @@ from repro_torch.models.common import (
     window_mask,
 )
 from repro_torch.models.config import MLAConfig, ModelConfig
+from repro_torch.sharding.dtensor import head_reshape, heads_local, is_dtensor, write_slot
 
 _NEG_INF = -1e30
 
@@ -73,9 +74,9 @@ def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor):
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    q = head_reshape(q, (B, S, H, hd), H)
+    k = head_reshape(k, (B, S, KV, hd), KV)
+    v = head_reshape(v, (B, S, KV, hd), KV)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -84,17 +85,26 @@ def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor):
 
 def _sdpa(q, k, v, mask, num_kv: int) -> torch.Tensor:
     """Grouped scaled-dot-product attention.
-    q (B,S,H,hd), k/v (B,T,KV,hd), mask (S,T) or (B,S,T) bool."""
+    q (B,S,H,hd), k/v (B,T,KV,hd), mask (S,T) or (B,S,T) bool. Sharded
+    (DTensors), each rank attends its own rows and heads
+    (``sharding.dtensor.heads_local``)."""
+    if is_dtensor(q) or is_dtensor(k):
+        return heads_local(lambda q, k, v: _sdpa_core(q, k, v, mask, k.shape[2]), (q, k, v),
+                           (2, 2, 2))
+    return _sdpa_core(q, k, v, mask, num_kv)
+
+
+def _sdpa_core(q, k, v, mask, num_kv: int) -> torch.Tensor:
     B, S, H, hd = q.shape
     G = H // num_kv
-    qg = q.reshape(B, S, num_kv, G, hd)
+    qg = head_reshape(q, (B, S, num_kv, G, hd), num_kv, dim=2)
     logits = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32)
     logits = logits / math.sqrt(hd)
     m = mask if mask.ndim == 3 else mask[None]
     logits = torch.where(m[:, None, None, :, :], logits, _NEG_INF)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
-    return out.reshape(B, S, H, hd)
+    return head_reshape(out, (B, S, H, hd), num_kv, dim=2)
 
 
 def _sdpa_chunked(q, k, v, num_kv: int, window: int, chunk: int) -> torch.Tensor:
@@ -122,8 +132,11 @@ def _sdpa_chunked(q, k, v, num_kv: int, window: int, chunk: int) -> torch.Tensor
 
 def _write(buf: torch.Tensor, slot, new: torch.Tensor) -> None:
     """buf[:, slot] = new[:, 0] in place; ``slot`` a host int or a () tensor
-    on buf's device (no host sync either way)."""
-    if isinstance(slot, torch.Tensor):
+    on buf's device (no host sync either way); a DTensor cache is written
+    shard by shard (``sharding.dtensor.write_slot``)."""
+    if is_dtensor(buf):
+        write_slot(buf, slot, new)
+    elif isinstance(slot, torch.Tensor):
         buf.index_copy_(1, slot.reshape(1).to(torch.long), new.to(buf.dtype))
     else:
         buf[:, slot] = new[:, 0].to(buf.dtype)
@@ -157,10 +170,10 @@ def gqa_forward(
 
     if encoder_kv is not None:
         k, v = encoder_kv
-        q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
+        q = head_reshape(x @ p["wq"].to(dt), (B, S, H, hd), H)
         mask = torch.ones((S, k.shape[1]), dtype=torch.bool, device=dev)
         out = _sdpa(q, k, v, mask, KV)
-        return out.reshape(B, S, H * hd) @ p["wo"].to(dt), None
+        return head_reshape(out, (B, S, H * hd), H, dim=2) @ p["wo"].to(dt), None
 
     q, k, v = _qkv(p, cfg, x)
     if cfg.pos_kind == "rope":
@@ -210,7 +223,7 @@ def gqa_forward(
         mask = valid[None, None, :]  # (B=1bc, S=1, T)
         out = _sdpa(q, kk.to(dt), vv.to(dt), mask, KV)
 
-    return out.reshape(B, S, H * hd) @ p["wo"].to(dt), cache
+    return head_reshape(out, (B, S, H * hd), H, dim=2) @ p["wo"].to(dt), cache
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, seq: int, window: int, dtype,
@@ -267,7 +280,7 @@ def mla_forward(
     scale = float(np.float32(1.0) / np.sqrt(np.float32(dn + dr)))
 
     cq = rms_norm(x @ p["w_dq"].to(dt), p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["w_uq"].to(dt)).reshape(B, S, H, dn + dr)
+    q = head_reshape(cq @ p["w_uq"].to(dt), (B, S, H, dn + dr), H)
     qn, qr = q[..., :dn], q[..., dn:]
     cos, sin = rope_angles(positions, dr, cfg.rope_theta)
     qr = apply_rope(qr, cos, sin)
@@ -278,16 +291,20 @@ def mla_forward(
 
     if cache is None or S > 1:
         # train / prefill: expand the latents
-        kn = (c_kv @ p["w_uk"].to(dt)).reshape(B, S, H, dn)
-        v = (c_kv @ p["w_uv"].to(dt)).reshape(B, S, H, dv)
+        kn = head_reshape(c_kv @ p["w_uk"].to(dt), (B, S, H, dn), H)
+        v = head_reshape(c_kv @ p["w_uv"].to(dt), (B, S, H, dv), H)
 
-        def block(qn_i, qr_i, off):
+        def attend(qn_i, qr_i, kn, kr, v, off):
             lg = (torch.einsum("bshd,bthd->bhst", qn_i, kn)
                   + torch.einsum("bshd,btd->bhst", qr_i, kr)).to(torch.float32) * scale
             m = causal_mask(qn_i.shape[1], S, off, dev)
             lg = torch.where(m[None, None], lg, _NEG_INF)
             w = torch.softmax(lg, dim=-1).to(dt)
             return torch.einsum("bhst,bthd->bshd", w, v)
+
+        def block(qn_i, qr_i, off):  # sharded: each rank its rows and heads
+            return heads_local(lambda *a: attend(*a, off), (qn_i, qr_i, kn, kr, v),
+                               (2, 2, 2, None, 2))
 
         qc = cfg.attn_q_chunk
         if cache is None and qc and S > qc and S % qc == 0:
@@ -301,9 +318,9 @@ def mla_forward(
                                            use_reentrant=False))
                 else:
                     outs.append(block(qn[:, sl], qr[:, sl], ci * qc))
-            out = torch.cat(outs, dim=1).reshape(B, S, H * dv)
+            out = head_reshape(torch.cat(outs, dim=1), (B, S, H * dv), H, dim=2)
         else:
-            out = block(qn, qr, 0).reshape(B, S, H * dv)
+            out = head_reshape(block(qn, qr, 0), (B, S, H * dv), H, dim=2)
         if cache is not None:
             # the prefill writes the latents at offset 0
             cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
@@ -314,7 +331,7 @@ def mla_forward(
         _write(ck, cache_pos, c_kv)
         _write(kk, cache_pos, kr)
         T = ck.shape[1]
-        w_uk = p["w_uk"].to(dt).reshape(r, H, dn)
+        w_uk = head_reshape(p["w_uk"].to(dt), (r, H, dn), H)
         q_lat = torch.einsum("bshd,rhd->bshr", qn, w_uk)  # (B, 1, H, r)
         ckd = ck.to(dt)
         logits = (torch.einsum("bshr,btr->bhst", q_lat, ckd)
@@ -323,8 +340,8 @@ def mla_forward(
         logits = torch.where(valid[None, None, None], logits, _NEG_INF)
         w = torch.softmax(logits, dim=-1).to(dt)
         o_lat = torch.einsum("bhst,btr->bshr", w, ckd)  # (B, 1, H, r)
-        w_uv = p["w_uv"].to(dt).reshape(r, H, dv)
-        out = torch.einsum("bshr,rhd->bshd", o_lat, w_uv).reshape(B, S, H * dv)
+        w_uv = head_reshape(p["w_uv"].to(dt), (r, H, dv), H)
+        out = head_reshape(torch.einsum("bshr,rhd->bshd", o_lat, w_uv), (B, S, H * dv), H, dim=2)
 
     return out @ p["wo"].to(dt), cache
 

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import Params, dense_init
 from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.sharding.dtensor import is_dtensor, moe_forward_sharded
 
 # the expert-parallel path's collectives (forward all-reduces of the
 # partial outputs; backward all-reduces of the token and gate gradients)
@@ -161,7 +162,14 @@ def moe_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *, group=None
 
     ``group``: a ``torch.distributed`` process group; when its size n > 1
     divides the expert count, every rank of it calls this with the same x
-    and the experts are split over the ranks (the module docstring)."""
+    and the experts are split over the ranks (the module docstring). A
+    DTensor ``x`` (the dry-run's trace) takes the mesh's model axis as the
+    group, as JAX's takes the ambient mesh's
+    (``sharding.dtensor.moe_forward_sharded``)."""
+    if is_dtensor(x):
+        sharded = moe_forward_sharded(p, cfg, x)
+        if sharded is not None:
+            return sharded
     if group is not None:
         import torch.distributed as dist
 

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from repro_torch.models.common import Params, dense_init, rms_norm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rglru import _causal_conv
+from repro_torch.sharding.dtensor import batch_local, head_reshape
 
 _ICLAMP = 8.0  # clamp on the exp input-gate preactivation
 _F32 = torch.float32
@@ -123,7 +124,7 @@ def mlstm_forward(
     u = F.silu(u)
 
     def heads(w):
-        return (u @ w.to(dt)).reshape(B, S, H, dh).transpose(1, 2)
+        return head_reshape(u @ w.to(dt), (B, S, H, dh), H).transpose(1, 2)
 
     # JAX divides by sqrt(dh) as a weak-typed scalar: rounded to dt first
     rsd = torch.tensor(math.sqrt(dh), dtype=dt, device=x.device)
@@ -149,22 +150,24 @@ def mlstm_forward(
         den = torch.clamp_min(torch.abs(torch.einsum("bhd,bhd->bh", new_norm, q0)), 1.0)
         h = (hq / den[..., None])[:, :, None]  # (B,H,1,dh)
     else:
-        pad = (-S) % chunk
-        if pad:
-            q, k, v, i_gate = (F.pad(a, (0, 0, 0, pad)) if a.ndim == 4 else F.pad(a, (0, pad))
-                               for a in (q, k, v, i_gate))
-            f_gate = F.pad(f_gate, (0, pad), value=1.0)
-        nch = q.shape[2] // chunk
-        hs = []
-        for ci in range(nch):
-            sl = slice(ci * chunk, (ci + 1) * chunk)
-            h, state, norm = _chunk_mlstm(q[:, :, sl], k[:, :, sl], v[:, :, sl],
-                                          i_gate[..., sl], f_gate[..., sl], state, norm)
-            hs.append(h)
-        h = torch.cat(hs, dim=2)[:, :, :S]
-        new_state, new_norm = state, norm
+        def chunks(q, k, v, i_gate, f_gate, state, norm):
+            pad = (-S) % chunk
+            if pad:
+                q, k, v, i_gate = (F.pad(a, (0, 0, 0, pad)) if a.ndim == 4
+                                   else F.pad(a, (0, pad)) for a in (q, k, v, i_gate))
+                f_gate = F.pad(f_gate, (0, pad), value=1.0)
+            hs = []
+            for ci in range(q.shape[2] // chunk):
+                sl = slice(ci * chunk, (ci + 1) * chunk)
+                h, state, norm = _chunk_mlstm(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                              i_gate[..., sl], f_gate[..., sl], state, norm)
+                hs.append(h)
+            return torch.cat(hs, dim=2)[:, :, :S], state, norm
 
-    hflat = h.transpose(1, 2).reshape(B, S, inner).to(dt)
+        # row by row: a sharded trace runs the chunks on each rank's rows
+        h, new_state, new_norm = batch_local(chunks, (q, k, v, i_gate, f_gate, state, norm))
+
+    hflat = head_reshape(h.transpose(1, 2), (B, S, inner), H, dim=2).to(dt)
     hflat = rms_norm(hflat, p["out_norm"], cfg.norm_eps)
     out = (hflat * F.silu(z)) @ p["w_down"].to(dt)
     if cache is not None:
@@ -226,24 +229,27 @@ def slstm_forward(
         c = n = h = torch.zeros((B, W), dtype=_F32, device=x.device)
         m = torch.full((B, W), -1e30, dtype=_F32, device=x.device)
 
-    r = p["r"].to(_F32)
-    b = p["b"]
-    hs = []
-    for t in range(S):
-        g = pre[:, t] + h @ r + b  # (B, 4W)
-        z_t = torch.tanh(g[:, :W])
-        i_t = g[:, W:2 * W]  # log-space input gate
-        f_t = F.logsigmoid(g[:, 2 * W:3 * W])  # log forget
-        o_t = torch.sigmoid(g[:, 3 * W:])
-        m2 = torch.maximum(f_t + m, i_t)
-        ip = torch.exp(i_t - m2)
-        fp = torch.exp(f_t + m - m2)
-        c = fp * c + ip * z_t
-        n = fp * n + ip
-        h = o_t * c / torch.clamp_min(n, 1.0)
-        m = m2
-        hs.append(h)
-    hseq = torch.stack(hs, dim=1).to(dt)  # (B,S,W)
+    def scan(pre, c, n, h, m, r, b):
+        hs = []
+        for t in range(S):
+            g = pre[:, t] + h @ r + b  # (B, 4W)
+            z_t = torch.tanh(g[:, :W])
+            i_t = g[:, W:2 * W]  # log-space input gate
+            f_t = F.logsigmoid(g[:, 2 * W:3 * W])  # log forget
+            o_t = torch.sigmoid(g[:, 3 * W:])
+            m2 = torch.maximum(f_t + m, i_t)
+            ip = torch.exp(i_t - m2)
+            fp = torch.exp(f_t + m - m2)
+            c = fp * c + ip * z_t
+            n = fp * n + ip
+            h = o_t * c / torch.clamp_min(n, 1.0)
+            m = m2
+            hs.append(h)
+        return torch.stack(hs, dim=1), c, n, h, m  # (B,S,W)
+
+    # row by row: a sharded trace runs the loop on each rank's rows
+    hseq, c, n, h, m = batch_local(scan, (pre, c, n, h, m), (p["r"].to(_F32), p["b"]))
+    hseq = hseq.to(dt)
     hseq = rms_norm(hseq, p["out_norm"], cfg.norm_eps)
     out = hseq @ p["w_down"].to(dt)
     if cache is not None:

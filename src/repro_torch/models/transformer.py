@@ -51,6 +51,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adam import tree_map
+from repro_torch.sharding.dtensor import embed_lookup, head_reshape
 
 Cache = dict[str, Any]
 
@@ -182,8 +183,8 @@ def layer_forward(
             # prefill / training: project the encoder's output to cross K/V
             B, T, _ = encoder_out.shape
             shape = (B, T, cfg.num_kv_heads, cfg.resolved_head_dim)
-            kv = ((encoder_out @ p["cross"]["wk"].to(dt)).reshape(shape),
-                  (encoder_out @ p["cross"]["wv"].to(dt)).reshape(shape))
+            kv = tuple(head_reshape(encoder_out @ p["cross"][w].to(dt), shape, cfg.num_kv_heads)
+                       for w in ("wk", "wv"))
             if cache is not None:
                 cache["cross_k"].copy_(kv[0])
                 cache["cross_v"].copy_(kv[1])
@@ -304,7 +305,8 @@ def _encoder_forward(p: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch
         q, k, v = attn._qkv(lp["mix"], cfg, h2)
         mask = torch.ones((h.shape[1], h.shape[1]), dtype=torch.bool, device=h.device)
         o = attn._sdpa(q, k, v, mask, cfg.num_kv_heads)
-        h = h + o.reshape(h.shape[0], h.shape[1], -1) @ lp["mix"]["wo"].to(h.dtype)
+        o = head_reshape(o, (h.shape[0], h.shape[1], -1), cfg.num_heads, dim=2)
+        h = h + o @ lp["mix"]["wo"].to(h.dtype)
         h2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
         return h + apply_mlp(lp["mlp"], h2, _mlp_kind(cfg))
 
@@ -350,7 +352,7 @@ def forward(
         )
     B, S = tokens.shape
     dev = tokens.device
-    x = params["embed"].to(dt)[tokens]
+    x = embed_lookup(params["embed"].to(dt), tokens)
 
     if cfg.vision is not None and patches is not None:
         pr = params["projector"]

@@ -27,6 +27,7 @@ from repro_torch.optim.adam import (
     tree_leaves,
     tree_map,
 )
+from repro_torch.sharding.dtensor import is_dtensor, sharded_cache, vocab_parallel_ce
 
 
 class TrainState(NamedTuple):
@@ -42,7 +43,10 @@ def init_train_state(gen: torch.Generator, cfg: ModelConfig) -> TrainState:
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean token CE in fp32. logits (B, S, V), targets (B, S) integer."""
+    """Mean token CE in fp32. logits (B, S, V), targets (B, S) integer;
+    sharded logits go vocab-parallel (``sharding.dtensor.vocab_parallel_ce``)."""
+    if is_dtensor(logits):
+        return vocab_parallel_ce(logits, targets, cross_entropy)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].to(torch.long))[..., 0]
     return torch.mean(logz - gold)
@@ -115,8 +119,12 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int):
 
     @torch.no_grad()
     def prefill_step(params, tokens, frames=None, patches=None):
-        cache = transformer.init_cache(serve_cfg, tokens.shape[0], cache_len,
-                                       transformer.torch_dtype(serve_cfg.dtype), tokens.device)
+        dt = transformer.torch_dtype(serve_cfg.dtype)
+        if is_dtensor(tokens):  # the dry-run's trace: the cache sharded as the tokens
+            cache = sharded_cache(serve_cfg, tokens, tokens.shape[0], cache_len, dt)
+        else:
+            cache = transformer.init_cache(serve_cfg, tokens.shape[0], cache_len, dt,
+                                           tokens.device)
         logits, cache, _ = transformer.forward(params, serve_cfg, tokens, frames=frames,
                                                patches=patches, cache=cache, cache_pos=0)
         return logits[:, -1], cache
