@@ -359,16 +359,18 @@ def device_busy(torch, prof, n: int) -> tuple[float, dict]:
 
 
 # m past the prediction's narrow body (m > 64; the projection's wide body
-# starts at m = 17, which the ragged cases above reach) and d past 4, as the
-# JAX package takes them: (P, S, Q, m, d) for the slots entry, (P, Q, m, d) for the
-# single-block one, (P, B, m, d) for the projection and K(X, Z); ragged Q and
-# B against the wide body's 32-row tiles and 64 x 32 factor tiles
+# starts at m = 17, which the ragged cases above reach, and the paper's
+# Fig. 4 trains at m = 20 on 400 cells of 32) and d past 4, as the JAX
+# package takes them: (P, S, Q, m, d) for the slots entry, (P, Q, m, d) for
+# the single-block one, (P, B, m, d) for the projection and K(X, Z); ragged
+# Q and B against the wide body's row tiles, 16-deep chunks and 128-column
+# tiles
 WIDE_SLOTS = ((3, 9, 77, 65, 5), (2, 4, 133, 128, 8), (2, 9, 50, 256, 2),
               (1, 3, 97, 1024, 5), (4, 9, 33, 5, 8), (1, 1, 45, 2048, 2))
 WIDE_SINGLE = ((5, 123, 65, 8), (3, 301, 128, 5), (2, 77, 256, 8), (1, 519, 1024, 2),
                (6, 45, 7, 5))
 WIDE_PROJ = ((3, 45, 65, 5), (2, 333, 128, 8), (1, 100, 256, 5), (1, 77, 1024, 8),
-             (7, 33, 5, 8), (1, 40, 2048, 2),
+             (7, 33, 5, 8), (1, 40, 2048, 2), (400, 32, 20, 2),
              # K(X, Z) past one wave (its z/l staged), m % 4 == 0 and not
              (40, 1024, 32, 2), (30, 1500, 25, 3))
 
@@ -1365,7 +1367,10 @@ def training_times(torch, dev, card: str, cache, x_main, fitted, ds, report: dic
 # m = 128 and 1,024; the projection at the JAX package's kernel benchmark
 # shapes (benchmarks/bench_kernels.py: (B, m, d) = (256, 128, 2) and
 # (1,024, 128, 3)), at 400 cells of m = 128 and at m = 1,024; K(X, Z) at the
-# same benchmark shapes and at one store-bound shape that writes 210 MB
+# same benchmark shapes and at one store-bound shape that writes 210 MB; the
+# paper's Fig. 4 widths (benchmarks/bench_delta.py: m in {5, 10, 20} at 400
+# cells, B = 32): the projection at m = 10 (narrow) and 20 (wide), the
+# slots kernel's request at m = 20
 WIDE_TIMES = (
     ("posterior_predict_slots", (16, 9, 256), 128, 2),
     ("posterior_predict_slots", (4, 1, 4096), 1024, 2),
@@ -1378,6 +1383,9 @@ WIDE_TIMES = (
     ("rbf_cross_cov", (1, 256), 128, 2),
     ("rbf_cross_cov", (1, 1024), 128, 3),
     ("rbf_cross_cov", (400, 4096), 32, 2),
+    ("svgp_projection", (400, 32), 10, 2),
+    ("svgp_projection", (400, 32), 20, 2),
+    ("posterior_predict_slots", (400, 9, 32), 20, 2),
 )
 
 

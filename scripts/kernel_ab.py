@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's CUDA kernels against other versions of their sources.
 
-    python scripts/kernel_ab.py [--against NAME=DIR ...] [--out report.json]
+    python scripts/kernel_ab.py [--against NAME=DIR ...] [--set all|thresholds]
+                                [--out report.json]
 
 Each DIR holds a ``predict.cu`` and a ``svgp_proj.cu`` with the same C
 entries as ``src/repro_torch/kernels/csrc/`` -- for example the csrc of an
@@ -23,8 +24,11 @@ that lane end to end in both forms, in turns: request p50 of 100
 4,096-point requests through ``Server.stream`` on the committed artifact,
 and the device's busy time a request in a torch.profiler window of 20
 (the per-cell form put in place of ``predict_cached_slots_stacked`` for
-its turns). Compare versions only within one run: two runs may land on
-two cards.
+its turns; with the default set only). ``--set thresholds`` times the
+projection at (400, 32) and the slots kernel at (400, 9, 32) over m in
+{9, ..., 65}, d = 2, where the narrow and the wide bodies meet (run it
+against a copy whose ``k*WideMinM`` are 9 to time the wide body there).
+Compare versions only within one run: two runs may land on two cards.
 """
 from __future__ import annotations
 
@@ -47,7 +51,9 @@ sys.path.insert(0, REPO)
 # launch and in per-cell launches; K(X, Z) at the JAX package's kernel
 # benchmark shapes and at a store-bound 210 MB; the wide body at m = 128;
 # m in 17..64 (the prediction's padded narrow instances, the projection's
-# wide body; the other body in a copy with k*WideMinM changed)
+# wide body; the other body in a copy with k*WideMinM changed); the paper's
+# Fig. 4 widths m = 10 and 20 at its 400 cells, B = 32 (and the slots
+# kernel's request at m = 20)
 SHAPES = (
     ("posterior_predict_slots", (400, 9, 32), 5, 2),
     ("posterior_predict_slots", (400, 9, 216), 5, 2),
@@ -77,7 +83,23 @@ SHAPES = (
     ("svgp_projection", (1, 4096), 33, 2),
     ("posterior_predict", (4, 4096), 1024, 2),
     ("svgp_projection", (1, 4096), 1024, 2),
+    ("posterior_predict_slots", (16, 9, 256), 128, 2),
+    ("posterior_predict_slots", (4, 1, 4096), 1024, 2),
+    ("svgp_projection", (1, 256), 128, 2),
+    ("svgp_projection", (400, 32), 128, 2),
+    ("svgp_projection", (400, 32), 10, 2),
+    ("svgp_projection", (400, 32), 20, 2),
+    ("posterior_predict_slots", (400, 9, 32), 20, 2),
 )
+# where the narrow and the wide bodies meet: (400, 32) and (400, 9, 32), d = 2
+THRESHOLD_MS = (9, 12, 16, 17, 20, 25, 33, 48, 64, 65)
+THRESHOLDS = tuple(("svgp_projection", (400, 32), m, 2) for m in THRESHOLD_MS) + tuple(
+    ("posterior_predict_slots", (400, 9, 32), m, 2) for m in THRESHOLD_MS)
+
+
+def shape_set(name: str) -> tuple:
+    """The rows of ``--set name``."""
+    return THRESHOLDS if name == "thresholds" else SHAPES
 
 
 def build_dir(path: str):
@@ -135,6 +157,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", action="append", default=[], metavar="NAME=DIR",
                     help="another version of the kernel sources (repeatable)")
+    ap.add_argument("--set", default="all", choices=("all", "thresholds"),
+                    help="which rows to time (default all)")
     ap.add_argument("--out", default=None, help="also write the table as JSON here")
     args = ap.parse_args()
     import torch
@@ -205,7 +229,7 @@ def main() -> int:
     print(f"[ab] launch floor (one-element add_): {1e3 * floor_ms:.3f} us")
     order = list(libs) + list(libs)[::-1]
     rows = []
-    for entry, shape, m, d in SHAPES:
+    for entry, shape, m, d in shape_set(args.set):
         P = shape[0]
         z = t(rng.uniform(0, 2, (P, m, d)))
         log_l = t(np.log(rng.uniform(0.3, 1.5, (P, d))))
@@ -267,7 +291,7 @@ def main() -> int:
               + f" us; bound {1e3 * b_ms:.3f} us"
               + (f"; fill_ of the output {fill_us:.3f} us" if fill_us is not None else "")
               + f"; worst tol ratio {ratio:.3f}")
-    lane = lane_ab(torch, cs, card)
+    lane = lane_ab(torch, cs, card) if args.set == "all" else None
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -53,17 +53,16 @@
 // copies need 16-byte aligned addresses and sizes; a (P, 5, 5) factor slab
 // of cell p starts at 100 p bytes, so the factor staging does not fit it.
 //
-// Wide body (m in [65, 2048], or d > 4; m and d runtime values, one
-// instance): knm no longer fits a thread's registers nor W and U a block's
-// shared memory (2 x 4 MB at m = 1,024), and at m >= 128 the 4 m^2 FLOP a
-// row bound it (FFMA at 67 TFLOP/s: Hopper's tensor cores have no fp32 mode
-// and TF32 is ruled out). A block takes R rows of one cell, computes knm
-// into dynamic shared memory (folding the mean as it goes), then runs
-// knm W^T and knm U^T as a register-blocked tile loop, W and U streamed
-// through shared memory by cp.async in double-buffered 64 x 32 tiles
-// (kernel_common.cuh); the squares fold per 64-column chunk in a fixed
-// order. The narrow or wide instance is chosen by m and d alone, never by
-// P, S or Q, so a row's bits never depend on the launch it lands in.
+// Wide body (m in [65, 2048], or d > 4; m and d runtime values): knm no
+// longer fits a thread's registers nor W and U a block's shared memory (2 x
+// 4 MB at m = 1,024), and at m >= 128 the 4 m^2 FLOP a row bound it (FFMA
+// at 67 TFLOP/s: Hopper's tensor cores have no fp32 mode and TF32 is ruled
+// out). It runs the GEMM of kernel_common.cuh: knm computed a 16-column
+// chunk at a time beside W's and U's chunks (cp.async), 8 rows x 4 columns
+// of each product a thread, the squares folded in a fixed order, the mean
+// summed over j in order. The narrow or wide instance is chosen by m and d
+// alone, never by P, S or Q, so a row's bits never depend on the launch it
+// lands in.
 //
 // Numerics: FFMA loops, expf (not __expf), no --use_fast_math. Any m in
 // [1, 2048] (narrow template bound MMAX: m itself up to 8, then 16, 32, 64;
@@ -281,102 +280,80 @@ cudaError_t launch(const float* hx, const float* z, const float* log_l, const fl
                                     stream);
 }
 
-// The wide body (m >= 65, or d > 4; m and d runtime): a block takes R rows
-// of cell p (grid (ceil(N / R), P), 4R threads), knm into shared memory,
-// then knm W^T and knm U^T by the FFMA tile loop of kernel_common.cuh with
-// W and U streamed in 64 x 32 tiles; the mean folds into the knm pass, the
-// squares into qd and sd per 64-column chunk. Per row the sequence is fixed
-// by m and d alone.
-__global__ void __launch_bounds__(128) predict_wide_kernel(
+// The wide body (m >= 65, or d > 4; m and d runtime): grid (row tiles,
+// P), 32 TR threads. A block runs the loop of kernel_common.cuh (wide_run)
+// over every column tile of W and U: each thread holds 8 rows x 4 columns
+// of knm W^T and of knm U^T. The mean folds over tile 0's knm chunks,
+// thread r summing row r's knm_j c_j in j order; thread r then adds row
+// r's tile squares in tile order. Per row the sequence is fixed by m and d
+// alone.
+template <int KD>
+__global__ void __launch_bounds__(256, 2) predict_wide_kernel(
     const float* __restrict__ hx, const float* __restrict__ z, const float* __restrict__ log_l,
     const float* __restrict__ log_var, const float* __restrict__ w, const float* __restrict__ u,
     const float* __restrict__ c, float* __restrict__ mean, float* __restrict__ fvar,
     long long N, int m, int d) {
+  constexpr int MR = 8;
   extern __shared__ __align__(16) float smem[];
-  const int R = blockDim.x / 4, RG = R / 4;
-  const int ld = wide_ld(m);
-  float* s_knm = smem;
-  float* s_tile = s_knm + R * ld;
-  float* s_out = s_tile + 2 * 2 * kWideTI * kWideLDW;
-  float* s_inv = s_out + 2 * R * kWideLDO;
-  const int tid = threadIdx.x, q = tid & 3, r = tid >> 2, ig = tid & 15, rg = tid >> 4;
-  const int p = blockIdx.y;
-  const long long row0 = (long long)blockIdx.x * R;
-  const int n = (int)min((long long)R, N - row0);
-  const float* wp = w + (size_t)p * m * m;
-  const float* up = u + (size_t)p * m * m;
-  const bool vec = (m & 3) == 0 && ((reinterpret_cast<uintptr_t>(w) |
-                                     reinterpret_cast<uintptr_t>(u)) & 15) == 0;
-
-  // the first tile in flight while knm is computed
-  wide_load_tile<2>(s_tile, wp, up, m, 0, 0, vec);
-  wide_stage_inv(s_inv, log_l + (size_t)p * d, d);
+  const int BM = MR * (blockDim.x / kWideTC), nt = wide_tiles(m);
+  const int tid = threadIdx.x, p = blockIdx.y;
+  const long long row0 = (long long)blockIdx.x * BM;
+  const int n = (int)min((long long)BM, N - row0);
+  const float* cp = c + (size_t)p * m;
   const float var = expf(log_var[p]);
-  __syncthreads();
-  const float* xrow = r < n ? hx + ((size_t)p * N + row0 + r) * d : nullptr;
-  const float mu = quad_sum(wide_knm(s_knm, ld, xrow, z + (size_t)p * m * d,
-                                     log_l + (size_t)p * d, s_inv, var, c + (size_t)p * m, m, d));
+  float mu = 0.f;  // thread r < BM: row r's mean
+  const float* s_part = wide_run<2, KD, MR>(
+      smem, WideTiles{nt, 1, 0}, n, hx + ((size_t)p * N + row0) * d, z + (size_t)p * m * d,
+      log_l + (size_t)p * d, var, w + (size_t)p * m * m, u + (size_t)p * m * m, m, d,
+      [&](WideStep, int, int, const auto&) {},
+      [&](WideStep s, const float* chunk) {  // tile 0's knm chunks fold the mean
+        if (s.k == 0 && tid < BM) {
+          const int j0 = kWideBK * s.c;
+#pragma unroll
+          for (int jj = 0; jj < kWideBK; ++jj)
+            if (j0 + jj < m) mu = fmaf(chunk[jj * BM + tid], cp[j0 + jj], mu);
+        }
+      },
+      [&](int, const auto&) {});
 
-  float qd = 0.f, sd = 0.f;
-  int buf = 0;
-  for (int ic = 0; ic < m; ic += kWideTI) {
-    float acc[2][4][4];
-#pragma unroll
-    for (int mat = 0; mat < 2; ++mat)
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii) acc[mat][rr][ii] = 0.f;
-    for (int jt = 0; jt < m; jt += kWideTJ) {
-      cp_async_wait_all();
-      __syncthreads();  // tile (ic, jt) and the knm tile visible; the other buffer free
-      const bool more = jt + kWideTJ < m;
-      if (more || ic + kWideTI < m) {
-        wide_load_tile<2>(s_tile + (buf ^ 1) * 2 * kWideTI * kWideLDW, wp, up, m,
-                          more ? ic : ic + kWideTI, more ? jt + kWideTJ : 0, vec);
-      }
-      wide_fma_tile<2>(acc, s_knm, ld, jt, s_tile + buf * 2 * kWideTI * kWideLDW, rg, RG, ig);
-      buf ^= 1;
+  __syncthreads();  // the last tile's partials
+  if (tid < n) {
+    float qd = 0.f, sd = 0.f;
+    for (int t = 0; t < nt; ++t) {
+      qd = __fadd_rn(qd, s_part[(t * 2) * BM + tid]);
+      sd = __fadd_rn(sd, s_part[(t * 2 + 1) * BM + tid]);
     }
-#pragma unroll
-    for (int mat = 0; mat < 2; ++mat)
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii)
-          s_out[(mat * R + rg + RG * rr) * kWideLDO + ig + 16 * ii] = acc[mat][rr][ii];
-    __syncthreads();
-    const int ni = min(kWideTI, m - ic);
-    for (int i = q; i < ni; i += 4) {
-      const float lk = s_out[r * kWideLDO + i];
-      const float su = s_out[(R + r) * kWideLDO + i];
-      qd = fmaf(lk, lk, qd);
-      sd = fmaf(su, su, sd);
-    }
-  }
-  qd = quad_sum(qd);
-  sd = quad_sum(sd);
-  if (q == 0 && r < n) {
-    mean[(size_t)p * N + row0 + r] = mu;
-    fvar[(size_t)p * N + row0 + r] = __fadd_rn(__fsub_rn(var, qd), sd);
+    mean[(size_t)p * N + row0 + tid] = mu;
+    fvar[(size_t)p * N + row0 + tid] = __fadd_rn(__fsub_rn(var, qd), sd);
   }
 }
 
-bool g_wide_opted[kMaxDevices];
+bool g_wide_opted[2][kMaxDevices];  // [KD > 0]
+int g_sms[kMaxDevices];
+
+template <int KD>
+cudaError_t launch_wide_kd(const float* hx, const float* z, const float* log_l,
+                           const float* log_var, const float* w, const float* u, const float* c,
+                           float* mean, float* fvar, int P, long long N, int m, int d, int device,
+                           cudaStream_t stream) {
+  const cudaError_t err = wide_opt_in(g_wide_opted[KD > 0], g_sms, device, predict_wide_kernel<KD>);
+  if (err != cudaSuccess) return err;
+  const WidePlan plan = wide_plan<2>(P, N, m, g_sms[device]);
+  if (plan.tiles > INT_MAX) return cudaErrorInvalidValue;
+  const int smem = 4 * wide_run_floats<2, 8>(m, KD, 8 * plan.tr);
+  predict_wide_kernel<KD><<<dim3((unsigned)plan.tiles, P), kWideTC * plan.tr, smem, stream>>>(
+      hx, z, log_l, log_var, w, u, c, mean, fvar, N, m, d);
+  return cudaSuccess;
+}
 
 cudaError_t launch_wide(const float* hx, const float* z, const float* log_l, const float* log_var,
                         const float* w, const float* u, const float* c, float* mean, float* fvar,
                         int P, int S, int Q, int m, int d, int device, cudaStream_t stream) {
-  cudaError_t err = wide_opt_in(predict_wide_kernel, g_wide_opted, device);
-  if (err != cudaSuccess) return err;
   const long long N = (long long)S * Q;
-  const int R = wide_rows(m);
-  const long long blocks = (N + R - 1) / R;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks, P);
-  predict_wide_kernel<<<grid, 4 * R, 4 * wide_smem_floats(m, 2), stream>>>(
-      hx, z, log_l, log_var, w, u, c, mean, fvar, N, m, d);
-  return cudaSuccess;
+  return d == 2 ? launch_wide_kd<2>(hx, z, log_l, log_var, w, u, c, mean, fvar, P, N, m, d,
+                                    device, stream)
+                : launch_wide_kd<0>(hx, z, log_l, log_var, w, u, c, mean, fvar, P, N, m, d,
+                                    device, stream);
 }
 
 }  // namespace

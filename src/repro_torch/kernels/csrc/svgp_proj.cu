@@ -40,14 +40,12 @@
 // as each value is ready (both paths measured on the H100: PERF.md).
 //
 // Wide (m in [17, 2048], or d > 4; m and d runtime): past m = 64 knm no
-// longer fits a thread's registers nor W a block's shared memory, and at
-// m = 25..64 it already beats the narrow body's padded MMAX = 32/64
-// instances (PERF.md); at m >= 128 the 2 m^2 FLOP a row bound it (FFMA at
-// 67 TFLOP/s: no tensor cores, since Hopper's have no fp32 mode and TF32
-// is ruled out). A block takes R rows of one cell, computes knm into
-// shared memory, and runs knm W^T as a register-blocked tile loop, W
-// streamed through shared memory by cp.async in double-buffered 64 x 32
-// tiles (kernel_common.cuh); W's tiles above the diagonal are skipped.
+// longer fits a thread's registers nor W a block's shared memory, and from
+// m = 17 it beats the narrow body (PERF.md); at m >= 128 the FFMA of knm
+// W^T over W's triangle bound it (67 TFLOP/s FP32: no tensor cores, since
+// Hopper's have no fp32 mode and TF32 is ruled out). The GEMM of
+// kernel_common.cuh: knm computed a 16-column chunk at a time beside W's
+// chunk (cp.async), W's tiles above the diagonal skipped.
 //
 // K(X, Z) has its own body: an elementwise pass bound by its stores, 4
 // consecutive outputs a thread per step (one float4 store), consecutive
@@ -71,6 +69,8 @@
 
 #include <climits>
 #include <cstdint>
+
+#include <cooperative_groups.h>
 
 #include "kernel_common.cuh"
 
@@ -265,100 +265,116 @@ cudaError_t launch_m(const float* x, const float* z, const float* log_l,
   return cudaSuccess;
 }
 
-// The wide body (m >= 17, or d > 4; m and d runtime): a block takes R rows of
-// cell p (grid (ceil(B / R), P), 4R threads), knm into shared memory, then
-// knm W^T by the FFMA tile loop of kernel_common.cuh with W streamed in
-// 64 x 32 tiles. W is lower triangular: the tiles of a 64-column chunk
-// past its last column are skipped (their terms are zeros, so no bit
-// changes). knm is stored coalesced from its tile, lk_t from each chunk's
-// slab, and q_diag folds each chunk's squares in a fixed column order.
-__global__ void __launch_bounds__(128) projection_wide_kernel(
+// The wide body (m >= 17, or d > 4; m and d runtime): grid (row tiles x cs,
+// P), 32 TR threads, a cluster of cs blocks along x where cs > 1. A block
+// runs the loop of kernel_common.cuh (wide_run) over its column tiles of W:
+// each thread holds MR rows x 4 columns of knm W^T. W is lower triangular:
+// tile t's chunks stop at its last column, and a warp skips a chunk that
+// lies wholly above the diagonal of its 32 columns (those terms are zeros,
+// so no bit changes). Each tile computes knm anew up to its last column and
+// stores its diagonal chunks' knm (float4 where m is a multiple of 4); its
+// lk_t goes out from the registers (8 threads a row, 32 consecutive
+// floats), and rank 0 adds the tiles' squares in tile order into q_diag.
+template <int KD, int MR>
+__global__ void __launch_bounds__(256, 2) projection_wide_kernel(
     const float* __restrict__ x, const float* __restrict__ z, const float* __restrict__ log_l,
     const float* __restrict__ log_var, const float* __restrict__ w, float* __restrict__ knm,
-    float* __restrict__ lk_t, float* __restrict__ q_diag, int B, int m, int d) {
+    float* __restrict__ lk_t, float* __restrict__ q_diag, int B, int m, int d, int cs) {
+  using L = WideLayout<1, MR>;
+  namespace cg = cooperative_groups;
   extern __shared__ __align__(16) float smem[];
-  const int R = blockDim.x / 4, RG = R / 4, T = blockDim.x;
-  const int ld = wide_ld(m);
-  float* s_knm = smem;
-  float* s_tile = s_knm + R * ld;
-  float* s_out = s_tile + 2 * kWideTI * kWideLDW;
-  float* s_inv = s_out + R * kWideLDO;
-  const int tid = threadIdx.x, q = tid & 3, r = tid >> 2, ig = tid & 15, rg = tid >> 4;
-  const int p = blockIdx.y;
-  const int b0 = blockIdx.x * R;
-  const int n = min(R, B - b0);
-  const long long g0 = (long long)p * B + b0;  // the block's first row of the flat (P*B)
+  const int BM = MR * (blockDim.x / kWideTC), nt = wide_tiles(m);
+  const int tid = threadIdx.x, tx = wide_tx(tid), ty = wide_ty(tid), p = blockIdx.y;
+  const WideTiles tl{nt, cs, (int)(blockIdx.x % cs)};
+  const int row0 = (int)(blockIdx.x / cs) * BM;
+  const int n = min(BM, B - row0);
+  const long long g0 = (long long)p * B + row0;  // the block's first row of the flat (P*B)
   const float* wp = w + (size_t)p * m * m;
-  const bool vec = (m & 3) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const bool vec = (m & 3) == 0 && (reinterpret_cast<uintptr_t>(knm) & 15) == 0;
+  const float* s_part = wide_run<1, KD, MR>(
+      smem, tl, n, x + (size_t)g0 * d, z + (size_t)p * m * d, log_l + (size_t)p * d,
+      expf(log_var[p]), wp, wp, m, d,
+      [&](WideStep s, int kr, int j, const auto& v) {  // a diagonal chunk's knm goes out
+        if (kWideBK * s.c < kWideBN * tl.tile(s.k)) return;
+        float* dst = knm + (size_t)(g0 + kr) * m + j;
+        if (L::E % 4 == 0 && vec) {
+#pragma unroll
+          for (int e = 0; e < L::E; e += 4)
+            if (j + e < m)
+              *reinterpret_cast<float4*>(dst + e) = make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < L::E; ++e)
+            if (j + e < m) dst[e] = v[e];
+        }
+      },
+      [&](WideStep, const float*) {},
+      [&](int t, const auto& acc) {  // the tile's lk_t out
+        const int i = kWideBN * t + wide_col(tx);
+#pragma unroll
+        for (int rr = 0; rr < MR; ++rr) {
+          const int r = MR * ty + rr;
+          float* dst = lk_t + (size_t)(g0 + r) * m + i;
+#pragma unroll
+          for (int cc = 0; cc < kWideMC; ++cc)
+            if (r < n && i + 8 * cc < m) dst[8 * cc] = acc[0][rr][cc];
+        }
+      });
 
-  wide_load_tile<1>(s_tile, wp, wp, m, 0, 0, vec);
-  wide_stage_inv(s_inv, log_l + (size_t)p * d, d);
-  const float var = expf(log_var[p]);
-  __syncthreads();
-  const float* xrow = r < n ? x + (size_t)(g0 + r) * d : nullptr;
-  wide_knm(s_knm, ld, xrow, z + (size_t)p * m * d, log_l + (size_t)p * d, s_inv, var, nullptr,
-           m, d);
-
-  float qd = 0.f;
-  int buf = 0;
-  for (int ic = 0; ic < m; ic += kWideTI) {
-    const int jend = min(m, ic + kWideTI);  // W_ij = 0 for j > i
-    float acc[1][4][4];
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) acc[0][rr][ii] = 0.f;
-    for (int jt = 0; jt < jend; jt += kWideTJ) {
-      cp_async_wait_all();
-      __syncthreads();  // tile (ic, jt) and the knm tile visible; the other buffer free
-      const bool more = jt + kWideTJ < jend;
-      if (more || ic + kWideTI < m) {
-        wide_load_tile<1>(s_tile + (buf ^ 1) * kWideTI * kWideLDW, wp, wp, m,
-                          more ? ic : ic + kWideTI, more ? jt + kWideTJ : 0, vec);
-      }
-      wide_fma_tile<1>(acc, s_knm, ld, jt, s_tile + buf * kWideTI * kWideLDW, rg, RG, ig);
-      buf ^= 1;
-    }
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-        s_out[(rg + RG * rr) * kWideLDO + ig + 16 * ii] = acc[0][rr][ii];
+  // rank 0 adds the tiles' partials in tile order into q_diag
+  if (cs > 1) {
+    cg::this_cluster().sync();
+  } else {
     __syncthreads();
-    const int ni = min(kWideTI, m - ic);
-    for (int i = q; i < ni; i += 4) {
-      const float lk = s_out[r * kWideLDO + i];
-      qd = fmaf(lk, lk, qd);
-    }
-    // the chunk's lk_t: each row's ni columns, consecutive threads on
-    // consecutive addresses
-    for (int e = tid; e < R * kWideTI; e += T) {
-      const int rr = e / kWideTI, i = e % kWideTI;
-      if (rr < n && i < ni) lk_t[(size_t)(g0 + rr) * m + ic + i] = s_out[rr * kWideLDO + i];
-    }
   }
-  qd = quad_sum(qd);
-  if (q == 0 && r < n) q_diag[g0 + r] = qd;
-  // knm: the block's n rows are one contiguous run of n * m floats
-  float* dst = knm + (size_t)g0 * m;
-  for (int e = tid; e < n * m; e += T) {
-    const int rr = e / m;
-    dst[e] = s_knm[rr * ld + e - rr * m];
+  if (tl.rank == 0 && tid < n) {
+    float q = 0.f;
+    for (int t = 0; t < nt; ++t) {
+      const float* src = cs > 1 ? cg::this_cluster().map_shared_rank(s_part, tl.owner(t)) : s_part;
+      q = __fadd_rn(q, src[t * BM + tid]);
+    }
+    q_diag[g0 + tid] = q;
   }
+  if (cs > 1) cg::this_cluster().sync();  // the partials stay until rank 0 has read them
 }
 
-bool g_wide_opted[kMaxDevices];
+bool g_wide_opted[2][kMaxDevices];  // [KD > 0]
+int g_sms[kMaxDevices];
+
+template <int KD, int MR>
+cudaError_t launch_wide_mr(const WidePlan& plan, const float* x, const float* z,
+                           const float* log_l, const float* log_var, const float* w, float* knm,
+                           float* lk_t, float* q_diag, int P, int B, int m, int d,
+                           cudaStream_t stream) {
+  if (plan.tiles * plan.cs > INT_MAX) return cudaErrorInvalidValue;
+  const int smem = 4 * wide_run_floats<1, MR>(m, KD, MR * plan.tr);
+  return wide_launch(projection_wide_kernel<KD, MR>, plan.cs,
+                     dim3((unsigned)(plan.tiles * plan.cs), P), kWideTC * plan.tr,
+                     smem, stream, x, z, log_l, log_var, w, knm, lk_t, q_diag, B, m, d, plan.cs);
+}
+
+template <int KD>
+cudaError_t launch_wide_kd(const float* x, const float* z, const float* log_l,
+                           const float* log_var, const float* w, float* knm, float* lk_t,
+                           float* q_diag, int P, int B, int m, int d, int device,
+                           cudaStream_t stream) {
+  const cudaError_t err = wide_opt_in(g_wide_opted[KD > 0], g_sms, device,
+                                      projection_wide_kernel<KD, 8>, projection_wide_kernel<KD, 2>);
+  if (err != cudaSuccess) return err;
+  const WidePlan plan = wide_plan<1>(P, B, m, g_sms[device]);
+  return plan.mr == 8 ? launch_wide_mr<KD, 8>(plan, x, z, log_l, log_var, w, knm, lk_t, q_diag, P,
+                                               B, m, d, stream)
+                      : launch_wide_mr<KD, 2>(plan, x, z, log_l, log_var, w, knm, lk_t, q_diag, P,
+                                               B, m, d, stream);
+}
 
 cudaError_t launch_wide(const float* x, const float* z, const float* log_l, const float* log_var,
                         const float* w, float* knm, float* lk_t, float* q_diag, int P, int B,
                         int m, int d, int device, cudaStream_t stream) {
-  const cudaError_t err = wide_opt_in(projection_wide_kernel, g_wide_opted, device);
-  if (err != cudaSuccess) return err;
-  const int R = wide_rows(m);
-  const dim3 grid((unsigned)((B + R - 1) / R), P);
-  projection_wide_kernel<<<grid, 4 * R, 4 * wide_smem_floats(m, 1), stream>>>(
-      x, z, log_l, log_var, w, knm, lk_t, q_diag, B, m, d);
-  return cudaSuccess;
+  return d == 2 ? launch_wide_kd<2>(x, z, log_l, log_var, w, knm, lk_t, q_diag, P, B, m, d,
+                                    device, stream)
+                : launch_wide_kd<0>(x, z, log_l, log_var, w, knm, lk_t, q_diag, P, B, m, d,
+                                    device, stream);
 }
 
 cudaError_t launch_projection(const float* x, const float* z, const float* log_l,

@@ -44,7 +44,7 @@ def _agrees(got, want, x, factors):
     assert ref.tolerance_ratio(got[1], want[1], fvar_s) <= 1
 
 
-@pytest.mark.parametrize("m,q,d", [(1, 1, 2), (5, 37, 2), (17, 129, 3), (64, 8, 4),
+@pytest.mark.parametrize("m,q,d", [(1, 1, 2), (5, 37, 2), (17, 129, 3), (20, 32, 2), (64, 8, 4),
                                    (65, 37, 5), (128, 19, 5)])
 def test_plain_posterior_predict_matches_jax_oracle(m, q, d):
     rng = np.random.default_rng(m * 100 + q)
@@ -66,7 +66,7 @@ def test_plain_rbf_cross_cov_matches_jax_oracle(b, m, d):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("s,q,m", [(9, 32, 5), (3, 77, 10)])
+@pytest.mark.parametrize("s,q,m", [(9, 32, 5), (3, 77, 10), (9, 32, 20)])
 def test_plain_slots_match_jax_oracle(s, q, m):
     rng = np.random.default_rng(s * q)
     f = _factors(rng, (), m, 2)
@@ -90,7 +90,8 @@ def test_plain_cell_axis_slots_are_per_cell_jax_slots():
         _agrees((got[0][p], got[1][p]), want, *_t([hx[p]]), _t(fp))
 
 
-@pytest.mark.parametrize("P,Q,m,d", [(4, 29, 6, 2), (3, 17, 65, 5), (2, 11, 128, 5)])
+@pytest.mark.parametrize("P,Q,m,d", [(4, 29, 6, 2), (3, 32, 20, 2), (3, 17, 65, 5),
+                                     (2, 11, 128, 5)])
 def test_cell_axis_posterior_predict_is_per_cell_calls_and_the_jax_oracle(P, Q, m, d):
     """``ops.posterior_predict`` with a leading cell axis (the "pallas"
     lane's one launch on CUDA; its plain version here) agrees with the
@@ -402,3 +403,44 @@ def test_cuda_slots_rows_are_bitwise_the_same_at_any_q_max(cuda_device, m, d):
         at_q = predict.posterior_predict_slots(wide, *f)
         for i in range(2):
             assert torch.equal(base[i], at_q[i][:, :, -32:])
+
+
+# the wide body's edges: m on and either side of its 16-deep chunks, its
+# 32-column groups and its 128-column tiles (and m = 20 with d = 5, wide by
+# d), each at Q of 1, 255, 256 and 257 in turn
+WIDE_EDGE_MS = (20, 65, 127, 128, 129, 255, 256, 257, 1023, 1024, 1025, 2047, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i,m", list(enumerate(WIDE_EDGE_MS)))
+def test_cuda_wide_prediction_tile_edges_match_plain(cuda_device, i, m):
+    Q, d, P = (1, 255, 256, 257)[i % 4], 5 if m == 20 else 2 + i % 2, 1 + i % 2
+    rng = np.random.default_rng(m + Q)
+    f = _t(_factors(rng, (P,), m, d), cuda_device)
+    hx = torch.as_tensor(rng.uniform(0, 2, (P, 1, Q, d)).astype(np.float32), device=cuda_device)
+    predict.reset_launches()
+    got = predict.posterior_predict_slots(hx, *f)
+    assert predict.LAUNCHES["posterior_predict_slots"] == 1
+    want = ref.posterior_predict_slots_stacked(hx, *f)
+    scales = ref.posterior_predict_scales(hx, *(a[:, None] for a in f))
+    assert ref.tolerance_ratio(got[0], want[0], scales[0]) <= 1
+    assert ref.tolerance_ratio(got[1], want[1], scales[1]) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(65, 2), (128, 2), (1024, 2), (300, 5)])
+def test_cuda_wide_prediction_rows_are_bitwise_across_row_tiles(cuda_device, m, d):
+    """A row's bits do not depend on the launch's row tile: 257 rows of one
+    cell alone (small row tiles), at the head of 9 x 4,096 rows and as cell
+    0 of 64 cells (large ones) agree bitwise."""
+    rng = np.random.default_rng(m)
+    f = _t(_factors(rng, (1,), m, d), cuda_device)
+    hx = torch.as_tensor(rng.uniform(0, 2, (1, 9, 4096, d)).astype(np.float32), device=cuda_device)
+    big = predict.posterior_predict_slots(hx, *f)
+    head = predict.posterior_predict_slots(hx[:, :1, :257].contiguous(), *f)
+    many = predict.posterior_predict_slots(hx[:, :1, :257].expand(64, -1, -1, -1).contiguous(),
+                                           *(a.expand(64, *a.shape[1:]).contiguous() for a in f))
+    for b, h, y in zip(big, head, many, strict=True):
+        assert torch.equal(b[:, :1, :257], h)
+        assert torch.equal(y[:1], h)
+        assert torch.equal(y[-1:], h)

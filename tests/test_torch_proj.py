@@ -65,8 +65,8 @@ def _assert_projection_agrees(got, want, args_w):
     assert ref.tolerance_ratio(got[2], want[2], q_s) <= 1
 
 
-@pytest.mark.parametrize("B,m,d", [(1, 1, 2), (8, 5, 2), (33, 10, 3), (7, 64, 4),
-                                   (9, 65, 5), (5, 128, 5)])
+@pytest.mark.parametrize("B,m,d", [(1, 1, 2), (8, 5, 2), (33, 10, 3), (32, 10, 2), (32, 20, 2),
+                                   (7, 64, 4), (9, 65, 5), (5, 128, 5)])
 def test_plain_svgp_projection_matches_jax_oracle(B, m, d):
     rng = np.random.default_rng(B * 100 + m)
     x, z, log_l, log_v, lmm = _problem(rng, (), B, m, d)
@@ -184,7 +184,7 @@ def test_new_wrappers_take_cuda_tensors_only_and_count_nothing_on_refusal():
     assert svgp_proj.LAUNCHES == {"svgp_projection": 0} and rbf.LAUNCHES == {"rbf_cross_cov": 0}
 
 
-@pytest.mark.parametrize("m", [5, 17, 80])
+@pytest.mark.parametrize("m", [5, 9, 17, 80])
 def test_function_hands_the_kernel_a_lower_triangular_w(monkeypatch, m):
     """The kernel's precondition (its wide body skips W's tiles above the
     diagonal): the Function's forward hands it W = Lmm^{-1} with every
@@ -323,3 +323,64 @@ def test_cuda_projection_rows_are_bitwise_the_same_however_packed(cuda_device, P
         for got, one, again in zip(together, alone, unaligned, strict=True):
             assert torch.equal(got[p:p + 1], one)
             assert torch.equal(got, again)
+
+
+# the wide body's edges: m on and either side of its 16-deep chunks, its
+# 32-column groups and its 128-column tiles (the Fig. 4 width m = 20, the
+# most m = 2,048), each at B of 1, 255, 256 and 257 in turn
+WIDE_EDGE_MS = (17, 20, 31, 32, 33, 63, 64, 65, 127, 128, 129, 1023, 1024, 1025, 2047, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i,m", list(enumerate(WIDE_EDGE_MS)))
+def test_cuda_wide_projection_tile_edges_match_plain(cuda_device, i, m):
+    """The wide projection at every tile edge against its plain version,
+    with K(X, Z)'s knm bitwise the projection's."""
+    B, d, P = (1, 255, 256, 257)[i % 4], 3 if i % 5 == 4 else 2, 1 + i % 2
+    rng = np.random.default_rng(m + B)
+    x, z, log_l, log_v, lmm = _problem(rng, (P,), B, m, d)
+    args = _t([x, z, log_l, log_v, _lower_inverse(lmm)], device=cuda_device)
+    svgp_proj.reset_launches()
+    got = svgp_proj.svgp_projection(*args)
+    assert svgp_proj.LAUNCHES["svgp_projection"] == 1
+    want = ref.svgp_projection(*args)
+    _assert_projection_agrees([g.cpu() for g in got], [g.cpu() for g in want],
+                              [a.cpu() for a in args])
+    assert torch.equal(rbf.rbf_cross_cov(*args[:4]), got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,d", [(4097, 1024, 2), (16385, 129, 2), (8191, 520, 3)])
+def test_cuda_wide_projection_large_launches_match_plain(cuda_device, B, m, d):
+    """Launches of thousands of rows, each with a ragged last 64-row tile,
+    against the plain version: column tiles paired over a cluster (m = 520
+    and 1,024) and one block walking both of its tiles (m = 129)."""
+    rng = np.random.default_rng(B)
+    x, z, log_l, log_v, lmm = _problem(rng, (1,), B, m, d)
+    args = _t([x, z, log_l, log_v, _lower_inverse(lmm)], device=cuda_device)
+    got = svgp_proj.svgp_projection(*args)
+    want = ref.svgp_projection(*args)
+    _assert_projection_agrees([g.cpu() for g in got], [g.cpu() for g in want],
+                              [a.cpu() for a in args])
+    assert torch.equal(rbf.rbf_cross_cov(*args[:4]), got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(20, 2), (128, 2), (1024, 2), (300, 5)])
+def test_cuda_wide_projection_rows_are_bitwise_across_row_tiles_and_splits(cuda_device, m, d):
+    """A row's bits do not depend on the launch's row tile, rows a thread or
+    cluster split: 257 rows of one cell alone (a few blocks: small row
+    tiles, column tiles split over a cluster), the same rows at the head of
+    4,096 (large row tiles) and as cell 0 of 64 cells (one block a row
+    tile walks every column tile) agree bitwise."""
+    rng = np.random.default_rng(m)
+    x, z, log_l, log_v, lmm = _problem(rng, (1,), 4096, m, d)
+    args = _t([x, z, log_l, log_v, _lower_inverse(lmm)], device=cuda_device)
+    big = svgp_proj.svgp_projection(*args)
+    head = svgp_proj.svgp_projection(args[0][:, :257].contiguous(), *args[1:])
+    many = svgp_proj.svgp_projection(args[0][:, :257].expand(64, -1, -1).contiguous(),
+                                     *(a.expand(64, *a.shape[1:]).contiguous() for a in args[1:]))
+    for b, h, y in zip(big, head, many, strict=True):
+        assert torch.equal(b[:, :257], h)
+        assert torch.equal(y[:1], h)
+        assert torch.equal(y[-1:], h)
