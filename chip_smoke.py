@@ -196,7 +196,14 @@ Phases, each printed as it runs; any failure exits non-zero:
               measured step no faster than the roofline's largest term /
               1.05; and rank 0's PSVGP step of the 16 x 16 grid on the
               card under the 256-rank group: one projection launch, the
-              CPU trace's collectives.
+              CPU trace's collectives; then the pinned cut cells
+              (repro_torch/launch/pins.py: qwen3-0.6b prefill_32k and
+              train_4k at 1 layer, minicpm3-4b prefill_32k at 1 layer,
+              xlstm-350m at one period and 128 positions, the PSVGP gather
+              step at 4 x 4) traced on this host's torch and held to the
+              pins the CPU tests hold (their collective bytes reckoned from
+              the shapes where they follow from them): the two torch
+              versions agree.
 
 Each phase's seconds are printed as "[phases] <phase>: <s> s".
 
@@ -3236,7 +3243,7 @@ def dryrun_phase(torch, dev, card: str, report: dict) -> None:
     from repro_torch.configs import get
     from repro_torch.configs.shapes import InputShape
     from repro_torch.kernels import svgp_proj
-    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch import dryrun, hlo_analysis, pins
     from repro_torch.launch.mesh import MeshSpec, make_production_mesh
 
     t_phase = time.perf_counter()
@@ -3310,6 +3317,20 @@ def dryrun_phase(torch, dev, card: str, report: dict) -> None:
             check(kinds == rec["psvgp"]["cpu_collectives"],
                   "dryrun psvgp: the card's collectives differ from the CPU trace's")
             check(kinds.get("collective-permute", 0) < 10e6, f"dryrun psvgp: {kinds}")
+
+            # -- 16d. the pinned cut cells on this host's torch, held to the
+            # pins the CPU tests hold (repro_torch/launch/pins.py)
+            rec["pins"] = {"torch": torch.__version__}
+            for name in pins.CELLS:
+                t0 = time.perf_counter()
+                got = pins.trace_cell(name)
+                bad = pins.check(name, got)
+                rec["pins"][name] = {**got, "trace_s": time.perf_counter() - t0, "bad": bad}
+                print(f"[dryrun] [{card}] pinned cell {name} on torch {torch.__version__}, traced"
+                      f" in {rec['pins'][name]['trace_s']:.3f} s: peak {got['peak']:,} B, "
+                      f"collectives {got['kinds']}: "
+                      + ("as pinned" if not bad else "; ".join(bad)))
+                check(not bad, f"dryrun pins: {bad}")
         finally:
             if dist.is_initialized():
                 dist.destroy_process_group()

@@ -11,7 +11,10 @@ distributed.fake_pg``) that moves no data. A 76B model traces on a laptop.
 Per combination it records one device's :class:`hlo_analysis.Trace`: its
 memory (arguments, outputs, temps, peak), FLOPs and bytes, and the
 collective bytes by kind — the inputs to a roofline — with the same keys
-as the JAX package's records. ``compile_s`` holds the trace's seconds.
+as the JAX package's records. ``compile_s`` holds the trace's seconds;
+``collective_sites`` (the port's own key) gives each model line's
+collective bytes by kind, what two records are compared by
+(``scripts/dryrun_diff.py``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k
@@ -172,9 +175,7 @@ def _record_terms(terms: hlo_analysis.RooflineTerms) -> dict:
 
 
 def _counts(trace: hlo_analysis.Trace) -> dict:
-    sites: dict = {}
-    for (site, kind) in trace.collective_sites():
-        sites.setdefault(site, set()).add(kind)
+    sites = {key: n for key, (_, n) in trace.collective_sites().items()}
     return {"flops": trace.flops, "bytes": trace.bytes_accessed,
             "collectives": hlo_analysis.collective_bytes(trace), "memory": trace.memory(),
             "sites": sites}
@@ -188,12 +189,22 @@ def _extrapolate(c1: dict, c2: dict, k: float) -> dict:
 
     out = {"flops": ex(c1["flops"], c2["flops"]), "bytes": ex(c1["bytes"], c2["bytes"])}
     kinds = set(c1["collectives"]) | set(c2["collectives"])
-    out["collectives"] = {key: max(int(ex(c1["collectives"].get(key, 0),
-                                          c2["collectives"].get(key, 0))),
-                                   c1["collectives"].get(key, 0)) for key in kinds}
+
+    def bytes_of(a, b, keys):
+        return {key: max(int(ex(a.get(key, 0), b.get(key, 0))), a.get(key, 0)) for key in keys}
+
+    out["collectives"] = bytes_of(c1["collectives"], c2["collectives"], kinds)
     out["memory"] = {key: int(ex(c1["memory"][key], c2["memory"][key])) for key in c1["memory"]}
-    out["sites"] = {site: c1["sites"].get(site, set()) | c2["sites"].get(site, set())
-                    for site in set(c1["sites"]) | set(c2["sites"])}
+    out["sites"] = bytes_of(c1["sites"], c2["sites"], set(c1["sites"]) | set(c2["sites"]))
+    return out
+
+
+def _sites(sites: dict) -> dict:
+    """(site, kind) -> bytes as the record's ``collective_sites``: site ->
+    kind -> collective bytes a device."""
+    out: dict = {}
+    for (site, kind), n in sorted(sites.items()):
+        out.setdefault(site, {})[kind] = n
     return out
 
 
@@ -227,9 +238,10 @@ def dryrun_one(
     at a time), so a trace of thousands of positions takes many minutes:
     with ``extrapolate`` a train or prefill shape of such an architecture
     is traced at the depth variants and at ``SEQ_POINTS`` positions, and
-    every count, memory included, is taken linear in the sequence length
-    between them (the blocks' work and activations are per position or
-    per chunk); the record's ``trace_extrapolated`` says which.
+    every count is taken linear in the sequence length between them (the
+    blocks' work and activations are per position or per chunk), and the
+    memory too, from full-depth traces at the two lengths; the record's
+    ``trace_extrapolated`` says which.
     """
     mesh = make_production_mesh(multi_pod=multi_pod)
     cfg = cfg_override if cfg_override is not None else resolve_config(arch, shape_name)
@@ -252,9 +264,9 @@ def dryrun_one(
         # the variants run microbatches=1, as JAX's metric variants do
         c1, c2 = (_counts(trace_combo(c, at, mesh, fsdp=fsdp)) for c in _depth_variants(cfg))
         out = _extrapolate(c1, c2, n_periods - 1)
-        if not by_seq:
-            out["memory"] = trace_combo(cfg, at, mesh, fsdp=fsdp,
-                                        microbatches=microbatches).memory()
+        # a peak is not a sum over periods (a remat step holds one period's
+        # activations at a time): the full depth's own
+        out["memory"] = trace_combo(cfg, at, mesh, fsdp=fsdp, microbatches=microbatches).memory()
         return out
 
     if by_seq:
@@ -302,7 +314,7 @@ def dryrun_one(
         **_record_terms(terms),
         "flops_source": flops_source,
         "trace_extrapolated": how,
-        "collective_sites": {k: sorted(v) for k, v in sorted(counts["sites"].items())},
+        "collective_sites": _sites(counts["sites"]),
         "model_flops": mflops,
         "useful_compute_ratio": mflops / total_flops if total_flops else 0.0,
     }
@@ -385,6 +397,7 @@ def psvgp_gather_trace(mesh: MeshSpec, exp=None) -> hlo_analysis.Trace:
     device), as the JAX package's pjit specs: traced on one mesh axis of
     all the devices, the same layout and groups."""
     import torch
+    from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.core import psvgp
@@ -418,7 +431,11 @@ def psvgp_gather_trace(mesh: MeshSpec, exp=None) -> hlo_analysis.Trace:
         args = (state, 0, x, y, mask, dist_)
         trace.add_arguments(args)
         trace.suppress -= 1
-        out = psvgp.train_step_gather(*args, cfg=cfg, cov_fn=make_covariance(cfg.svgp.covariance))
+        new_state, loss = psvgp.train_step_gather(*args, cfg=cfg,
+                                                  cov_fn=make_covariance(cfg.svgp.covariance))
+        # the loss replicated, as JAX's out_shardings ask: the mean's pending
+        # average over the cells is all-reduced
+        out = (new_state, loss.redistribute(dmesh, [Replicate()]))
         trace.add_outputs(out)
     return trace
 

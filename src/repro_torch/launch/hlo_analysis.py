@@ -69,19 +69,19 @@ _NOT_SITES = (os.sep + "torch" + os.sep, "contextlib",
               os.path.join("repro_torch", "sharding", "dtensor.py"))
 
 
-def op_site() -> str:
-    """The innermost frame that issued the current op outside torch, this
-    module and the DTensor helpers (whose collectives a model line asks
-    for): "repro_torch/<path>:<line>"."""
+def _issuer():
+    """("repro_torch/<path>", frame) of the innermost frame that issued the
+    current op outside torch, this module and the DTensor helpers (whose
+    collectives a model line asks for); ("?", None) if there is none."""
     f = sys._getframe(1)
     while f is not None:
         fn = f.f_code.co_filename
         if not fn.startswith("<") and not any(n in fn for n in _NOT_SITES):
             norm = fn.replace(os.sep, "/")
             i = norm.rfind("/repro_torch/")
-            return f"{norm[i + 1:] if i >= 0 else os.path.basename(norm)}:{f.f_lineno}"
+            return (norm[i + 1:] if i >= 0 else os.path.basename(norm)), f
         f = f.f_back
-    return "?:?"
+    return "?", None
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -103,13 +103,16 @@ class Trace:
 
     ``collectives`` holds (mnemonic, result bytes, site) per collective;
     the site is the innermost frame outside torch that issued it (the
-    model line of a head reshard). ``suppress`` > 0 pauses the record
+    model line of a head reshard), and ``functions`` maps each site to
+    its function ("repro_torch/<path>:<qualname>"), which an edit that
+    moves lines leaves as it is. ``suppress`` > 0 pauses the record
     (building the state, DTensor's own shape propagation)."""
 
     def __init__(self):
         self.flops = 0
         self.bytes_accessed = 0
         self.collectives: list[tuple[str, int, str]] = []
+        self.functions: dict[str, str] = {}
         self.arguments = 0
         self.outputs = 0
         self.live = 0
@@ -153,7 +156,10 @@ class Trace:
     # -- what the dispatch mode sees -----------------------------------------
 
     def collective(self, kind: str, nbytes: int) -> None:
-        self.collectives.append((kind, int(nbytes), op_site()))
+        path, f = _issuer()
+        site = f"{path}:{f.f_lineno if f is not None else '?'}"
+        self.collectives.append((kind, int(nbytes), site))
+        self.functions[site] = f"{path}:{f.f_code.co_qualname if f is not None else '?'}"
 
     def on_op(self, func, args, kwargs, out) -> None:
         from torch.utils.flop_counter import flop_registry

@@ -39,7 +39,7 @@ from repro_torch.models.common import (
     window_mask,
 )
 from repro_torch.models.config import MLAConfig, ModelConfig
-from repro_torch.sharding.dtensor import head_reshape, heads_local, is_dtensor, write_slot
+from repro_torch.sharding.dtensor import head_reshape, heads_local, is_dtensor, linear, write_slot
 
 _NEG_INF = -1e30
 
@@ -67,9 +67,9 @@ def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor):
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt = x.dtype
-    q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    q = linear(x, p["wq"].to(dt))
+    k = linear(x, p["wk"].to(dt))
+    v = linear(x, p["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -86,11 +86,15 @@ def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor):
 def _sdpa(q, k, v, mask, num_kv: int) -> torch.Tensor:
     """Grouped scaled-dot-product attention.
     q (B,S,H,hd), k/v (B,T,KV,hd), mask (S,T) or (B,S,T) bool. Sharded
-    (DTensors), each rank attends its own rows and heads
-    (``sharding.dtensor.heads_local``)."""
+    (DTensors), each rank attends its own rows, heads or query positions
+    (``sharding.dtensor.heads_local``), the mask's rows taken at its
+    queries' offset."""
     if is_dtensor(q) or is_dtensor(k):
-        return heads_local(lambda q, k, v: _sdpa_core(q, k, v, mask, k.shape[2]), (q, k, v),
-                           (2, 2, 2))
+        def core(q, k, v, q0):
+            m = mask if mask.shape[-2] == 1 else mask[..., q0:q0 + q.shape[1], :]
+            return _sdpa_core(q, k, v, m, k.shape[2])
+
+        return heads_local(core, (q, k, v), (2, 2, 2))
     return _sdpa_core(q, k, v, mask, num_kv)
 
 
@@ -170,10 +174,10 @@ def gqa_forward(
 
     if encoder_kv is not None:
         k, v = encoder_kv
-        q = head_reshape(x @ p["wq"].to(dt), (B, S, H, hd), H)
+        q = head_reshape(linear(x, p["wq"].to(dt)), (B, S, H, hd), H)
         mask = torch.ones((S, k.shape[1]), dtype=torch.bool, device=dev)
         out = _sdpa(q, k, v, mask, KV)
-        return head_reshape(out, (B, S, H * hd), H, dim=2) @ p["wo"].to(dt), None
+        return linear(head_reshape(out, (B, S, H * hd), H, dim=2), p["wo"].to(dt)), None
 
     q, k, v = _qkv(p, cfg, x)
     if cfg.pos_kind == "rope":
@@ -223,7 +227,7 @@ def gqa_forward(
         mask = valid[None, None, :]  # (B=1bc, S=1, T)
         out = _sdpa(q, kk.to(dt), vv.to(dt), mask, KV)
 
-    return head_reshape(out, (B, S, H * hd), H, dim=2) @ p["wo"].to(dt), cache
+    return linear(head_reshape(out, (B, S, H * hd), H, dim=2), p["wo"].to(dt)), cache
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, seq: int, window: int, dtype,
@@ -279,20 +283,20 @@ def mla_forward(
     # float32 1 / sqrt(dn + dr), both ops rounded in float32 as JAX's
     scale = float(np.float32(1.0) / np.sqrt(np.float32(dn + dr)))
 
-    cq = rms_norm(x @ p["w_dq"].to(dt), p["q_norm"], cfg.norm_eps)
-    q = head_reshape(cq @ p["w_uq"].to(dt), (B, S, H, dn + dr), H)
+    cq = rms_norm(linear(x, p["w_dq"].to(dt)), p["q_norm"], cfg.norm_eps)
+    q = head_reshape(linear(cq, p["w_uq"].to(dt)), (B, S, H, dn + dr), H)
     qn, qr = q[..., :dn], q[..., dn:]
     cos, sin = rope_angles(positions, dr, cfg.rope_theta)
     qr = apply_rope(qr, cos, sin)
 
-    c_kv = rms_norm(x @ p["w_dkv"].to(dt), p["kv_norm"], cfg.norm_eps)  # (B, S, r)
-    kr = (x @ p["w_kr"].to(dt)).reshape(B, S, 1, dr)
+    c_kv = rms_norm(linear(x, p["w_dkv"].to(dt)), p["kv_norm"], cfg.norm_eps)  # (B, S, r)
+    kr = linear(x, p["w_kr"].to(dt)).reshape(B, S, 1, dr)
     kr = apply_rope(kr, cos, sin)[:, :, 0]  # (B, S, dr), shared across heads
 
     if cache is None or S > 1:
         # train / prefill: expand the latents
-        kn = head_reshape(c_kv @ p["w_uk"].to(dt), (B, S, H, dn), H)
-        v = head_reshape(c_kv @ p["w_uv"].to(dt), (B, S, H, dv), H)
+        kn = head_reshape(linear(c_kv, p["w_uk"].to(dt)), (B, S, H, dn), H)
+        v = head_reshape(linear(c_kv, p["w_uv"].to(dt)), (B, S, H, dv), H)
 
         def attend(qn_i, qr_i, kn, kr, v, off):
             lg = (torch.einsum("bshd,bthd->bhst", qn_i, kn)
@@ -302,9 +306,9 @@ def mla_forward(
             w = torch.softmax(lg, dim=-1).to(dt)
             return torch.einsum("bhst,bthd->bshd", w, v)
 
-        def block(qn_i, qr_i, off):  # sharded: each rank its rows and heads
-            return heads_local(lambda *a: attend(*a, off), (qn_i, qr_i, kn, kr, v),
-                               (2, 2, 2, None, 2))
+        def block(qn_i, qr_i, off):  # sharded: each rank its rows, heads or query positions
+            return heads_local(lambda *a: attend(*a[:-1], off + a[-1]), (qn_i, qr_i, kn, kr, v),
+                               (2, 2, 2, None, 2), n_query=2)
 
         qc = cfg.attn_q_chunk
         if cache is None and qc and S > qc and S % qc == 0:
@@ -343,7 +347,7 @@ def mla_forward(
         w_uv = head_reshape(p["w_uv"].to(dt), (r, H, dv), H)
         out = head_reshape(torch.einsum("bshr,rhd->bshd", o_lat, w_uv), (B, S, H * dv), H, dim=2)
 
-    return out @ p["wo"].to(dt), cache
+    return linear(out, p["wo"].to(dt)), cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, seq: int, dtype, device=None,

@@ -15,6 +15,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.dtensor import linear
+
 Params = dict[str, torch.Tensor]
 
 
@@ -115,11 +117,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 def apply_mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     dt = x.dtype
     if kind == "swiglu":
-        gate = F.silu(x @ p["w_gate"].to(dt))
-        return (gate * (x @ p["w_up"].to(dt))) @ p["w_down"].to(dt)
+        gate = F.silu(linear(x, p["w_gate"].to(dt)))
+        return linear(gate * linear(x, p["w_up"].to(dt)), p["w_down"].to(dt))
     if kind == "gelu":
-        h = gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt))
-        return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
+        h = gelu(linear(x, p["w_up"].to(dt)) + p["b_up"].to(dt))
+        return linear(h, p["w_down"].to(dt)) + p["b_down"].to(dt)
     raise ValueError(kind)
 
 

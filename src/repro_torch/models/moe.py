@@ -42,7 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import Params, dense_init
 from repro_torch.models.config import ModelConfig, MoEConfig
-from repro_torch.sharding.dtensor import is_dtensor, moe_forward_sharded
+from repro_torch.sharding.dtensor import is_dtensor, linear, moe_forward_sharded
 
 # the expert-parallel path's collectives (forward all-reduces of the
 # partial outputs; backward all-reduces of the token and gate gradients)
@@ -137,8 +137,8 @@ def _experts(buf: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
 
 def _shared(p: Params, xt: torch.Tensor) -> torch.Tensor:
     sp, dt = p["shared"], xt.dtype
-    g = F.silu(xt @ sp["w_gate"].to(dt))
-    return (g * (xt @ sp["w_up"].to(dt))) @ sp["w_down"].to(dt)
+    g = F.silu(linear(xt, sp["w_gate"].to(dt)))
+    return linear(g * linear(xt, sp["w_up"].to(dt)), sp["w_down"].to(dt))
 
 
 def _combine_k(per_assign: torch.Tensor, K: int) -> torch.Tensor:

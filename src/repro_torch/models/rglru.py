@@ -19,7 +19,7 @@ takes a log-step (Hillis-Steele) scan: ceil(log2 S) whole-tensor passes of
 scans associate the products differently, so they agree to float32
 rounding, not bitwise. Decode is the exact one-step update with (conv
 window, h) carried as cache; a given cache is written in place (its
-tensors are views of the model's stacked cache). ``_causal_conv`` is
+tensors are views of the model's stacked cache). ``causal_conv`` is
 shared with the mLSTM block (``models/ssm.py``), as in JAX.
 """
 from __future__ import annotations
@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.models.common import Params, dense_init, gelu
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.dtensor import batch_local, linear
 
 _C = 8.0
 _F32 = torch.float32
@@ -70,6 +71,27 @@ def _causal_conv(u: torch.Tensor, kernel: torch.Tensor, state: torch.Tensor | No
     return out, new_state
 
 
+def causal_conv(u: torch.Tensor, kernel: torch.Tensor, state: torch.Tensor | None):
+    """:func:`_causal_conv`; sharded, each rank convolves its rows and its
+    channels (the conv is depthwise)."""
+    return batch_local(lambda u, state, kernel: _causal_conv(u, kernel, state), (u, state),
+                       (kernel,), split=(2, 2, 1), out_split=(2, 2))
+
+
+def _gate_scan(u, r, i, h0, lam, one_step: bool):
+    """The gated recurrence of u, r, i (B, S, W) from h0 (B, W) fp32 (None:
+    from 0), channel by channel: (h (B, S, W) fp32,)."""
+    # jax.nn.softplus is logaddexp(x, 0) (F.softplus is linear past 20)
+    sp = torch.logaddexp(lam, torch.zeros_like(lam))
+    a = torch.exp(-_C * r * sp)  # (B,S,W) fp32, in (0, 1]
+    gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * i * u.to(_F32)
+    if h0 is None:
+        return (_rglru_scan(gated, a, None),)
+    if not one_step:
+        return (_rglru_scan(gated, a, h0),)
+    return ((a[:, 0] * h0 + gated[:, 0])[:, None],)
+
+
 def _rglru_scan(u: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None) -> torch.Tensor:
     """h_t = a_t h_{t-1} + u_t over axis 1 by a log-step scan. u, a (B, S, W);
     h0 (B, W) or None (h_{-1} = 0)."""
@@ -97,29 +119,22 @@ def rglru_forward(
     full sequence (no cache), a prefill from the cache's h (S > 1) and the
     exact one-step decode (S == 1); a given cache is written in place."""
     dt = x.dtype
-    branch_a = gelu(x @ p["w_a"].to(dt))  # (B,S,W)
-    u = x @ p["w_b"].to(dt)
+    branch_a = gelu(linear(x, p["w_a"].to(dt)))  # (B,S,W)
+    u = linear(x, p["w_b"].to(dt))
     conv_state = cache["conv"] if cache is not None else None
-    u, new_conv = _causal_conv(u, p["conv"], conv_state)
+    u, new_conv = causal_conv(u, p["conv"], conv_state)
 
-    r = torch.sigmoid(u @ p["w_r"].to(dt)).to(_F32)
-    i = torch.sigmoid(u @ p["w_i"].to(dt)).to(_F32)
-    # jax.nn.softplus is logaddexp(x, 0) (F.softplus is linear past 20)
-    sp = torch.logaddexp(p["lam"], torch.zeros_like(p["lam"]))
-    a = torch.exp(-_C * r * sp)  # (B,S,W) fp32, in (0, 1]
-    gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * i * u.to(_F32)
-
-    if cache is None:
-        h = _rglru_scan(gated, a, None)
-    elif x.shape[1] > 1:
-        h = _rglru_scan(gated, a, cache["h"].to(_F32))
-    else:
-        h = (a[:, 0] * cache["h"].to(_F32) + gated[:, 0])[:, None]
+    r = torch.sigmoid(linear(u, p["w_r"].to(dt))).to(_F32)
+    i = torch.sigmoid(linear(u, p["w_i"].to(dt))).to(_F32)
+    h0 = cache["h"].to(_F32) if cache is not None else None
+    # channel by channel: sharded, each rank its rows and its channels
+    (h,) = batch_local(lambda *a: _gate_scan(*a, one_step=x.shape[1] == 1), (u, r, i, h0),
+                       (p["lam"],), split=(2, 2, 2, 1, 0), out_split=(2,))
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["h"].copy_(h[:, -1])
 
-    out = (branch_a * h.to(dt)) @ p["w_out"].to(dt)
+    out = linear(branch_a * h.to(dt), p["w_out"].to(dt))
     return out, cache
 
 

@@ -32,8 +32,15 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import Params, dense_init, rms_norm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.rglru import _causal_conv
-from repro_torch.sharding.dtensor import batch_local, head_reshape
+from repro_torch.models.rglru import causal_conv
+from repro_torch.sharding.dtensor import (
+    batch_local,
+    head_reshape,
+    like,
+    linear,
+    reshard_for_heads,
+    whole,
+)
 
 _ICLAMP = 8.0  # clamp on the exp input-gate preactivation
 _F32 = torch.float32
@@ -104,6 +111,42 @@ def _chunk_mlstm(q, k, v, i_gate, f_gate, state, norm):
     return h, new_state, new_norm
 
 
+def _mlstm_step(q, k, v, i_gate, f_gate, state, norm):
+    """Decode: the exact single-step recurrence (k v^T in the activation
+    dtype, then the gate). q, k, v (B,H,1,dh); gates (B,H,1); state
+    (B,H,dh,dv); norm (B,H,dh). Returns h (B,H,1,dv), new state, new norm."""
+    f1 = f_gate[..., 0][..., None, None]
+    i1 = i_gate[..., 0][..., None, None]
+    new_state = f1 * state + i1 * (k[:, :, 0, :, None] * v[:, :, 0, None, :])
+    new_norm = f1[..., 0] * norm + i1[..., 0] * k[:, :, 0]
+    q0 = q[:, :, 0].to(_F32)
+    hq = torch.einsum("bhde,bhd->bhe", new_state, q0)
+    den = torch.clamp_min(torch.abs(torch.einsum("bhd,bhd->bh", new_norm, q0)), 1.0)
+    return (hq / den[..., None])[:, :, None], new_state, new_norm
+
+
+def _mlstm_chunks(q, k, v, i_gate, f_gate, state, norm, S: int, chunk: int):
+    """The chunkwise form over S positions (padded to whole chunks): q, k,
+    v (B,H,S,dh); gates (B,H,S); state (B,H,dh,dv); norm (B,H,dh). Returns
+    h (B,H,S,dv), the last state and norm; a state and norm of None start
+    from zeros."""
+    if state is None:
+        state = torch.zeros(q.shape[:2] + (q.shape[3], v.shape[3]), dtype=_F32, device=q.device)
+        norm = torch.zeros(q.shape[:2] + (q.shape[3],), dtype=_F32, device=q.device)
+    pad = (-S) % chunk
+    if pad:
+        q, k, v, i_gate = (F.pad(a, (0, 0, 0, pad)) if a.ndim == 4
+                           else F.pad(a, (0, pad)) for a in (q, k, v, i_gate))
+        f_gate = F.pad(f_gate, (0, pad), value=1.0)
+    hs = []
+    for ci in range(q.shape[2] // chunk):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        h, state, norm = _chunk_mlstm(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                      i_gate[..., sl], f_gate[..., sl], state, norm)
+        hs.append(h)
+    return torch.cat(hs, dim=2)[:, :, :S], state, norm
+
+
 def mlstm_forward(
     p: Params,
     cfg: ModelConfig,
@@ -117,59 +160,44 @@ def mlstm_forward(
     B, S, D = x.shape
     inner, H, dh = _mlstm_dims(cfg)
     dt = x.dtype
-    z = x @ p["w_gate"].to(dt)  # output gate branch
-    u = x @ p["w_up"].to(dt)
+    z = linear(x, p["w_gate"].to(dt))  # output gate branch
+    u = linear(x, p["w_up"].to(dt))
     conv_state = cache["conv"] if cache is not None else None
-    u, new_conv = _causal_conv(u, p["conv"], conv_state)
-    u = F.silu(u)
+    u, new_conv = causal_conv(u, p["conv"], conv_state)
+    # sharded: u whole on every rank, gathered once for its four products
+    u = reshard_for_heads(F.silu(u), 1)
 
     def heads(w):
-        return head_reshape(u @ w.to(dt), (B, S, H, dh), H).transpose(1, 2)
+        return head_reshape(linear(u, w.to(dt)), (B, S, H, dh), H).transpose(1, 2)
 
     # JAX divides by sqrt(dh) as a weak-typed scalar: rounded to dt first
     rsd = torch.tensor(math.sqrt(dh), dtype=dt, device=x.device)
     q, k, v = heads(p["wq"]), heads(p["wk"]) / rsd, heads(p["wv"])
-    gates = (u @ p["w_if"].to(dt)).to(_F32) + p["b_if"]  # (B,S,2H)
+    gates = linear(u, p["w_if"].to(dt)).to(_F32) + p["b_if"]  # (B,S,2H)
     i_gate = torch.exp(torch.clamp_max(gates[..., :H], _ICLAMP)).transpose(1, 2)  # (B,H,S)
     f_gate = torch.sigmoid(gates[..., H:]).transpose(1, 2)
 
-    if cache is not None:
-        state, norm = cache["state"].to(_F32), cache["norm"].to(_F32)
-    else:
-        state = torch.zeros((B, H, dh, dh), dtype=_F32, device=x.device)
-        norm = torch.zeros((B, H, dh), dtype=_F32, device=x.device)
+    # without a cache the steps start from zeros of their own rows' shape
+    state, norm = ((cache["state"].to(_F32), cache["norm"].to(_F32)) if cache is not None
+                   else (None, None))
 
     if S == 1 and cache is not None:
-        # decode: exact single-step recurrence; k v^T in dt, then the gate
-        f1 = f_gate[..., 0][..., None, None]
-        i1 = i_gate[..., 0][..., None, None]
-        new_state = f1 * state + i1 * (k[:, :, 0, :, None] * v[:, :, 0, None, :])
-        new_norm = f1[..., 0] * norm + i1[..., 0] * k[:, :, 0]
-        q0 = q[:, :, 0].to(_F32)
-        hq = torch.einsum("bhde,bhd->bhe", new_state, q0)
-        den = torch.clamp_min(torch.abs(torch.einsum("bhd,bhd->bh", new_norm, q0)), 1.0)
-        h = (hq / den[..., None])[:, :, None]  # (B,H,1,dh)
+        steps = _mlstm_step
     else:
-        def chunks(q, k, v, i_gate, f_gate, state, norm):
-            pad = (-S) % chunk
-            if pad:
-                q, k, v, i_gate = (F.pad(a, (0, 0, 0, pad)) if a.ndim == 4
-                                   else F.pad(a, (0, pad)) for a in (q, k, v, i_gate))
-                f_gate = F.pad(f_gate, (0, pad), value=1.0)
-            hs = []
-            for ci in range(q.shape[2] // chunk):
-                sl = slice(ci * chunk, (ci + 1) * chunk)
-                h, state, norm = _chunk_mlstm(q[:, :, sl], k[:, :, sl], v[:, :, sl],
-                                              i_gate[..., sl], f_gate[..., sl], state, norm)
-                hs.append(h)
-            return torch.cat(hs, dim=2)[:, :, :S], state, norm
+        def steps(*a):
+            return _mlstm_chunks(*a, S, chunk)
 
-        # row by row: a sharded trace runs the chunks on each rank's rows
-        h, new_state, new_norm = batch_local(chunks, (q, k, v, i_gate, f_gate, state, norm))
+    # row by row: a sharded trace runs the steps on each rank's rows and its
+    # slice of the value dim (v's and C's columns, h's dims; q, k, the gates
+    # and n whole: the recurrence is independent across the value dim)
+    h, new_state, new_norm = batch_local(steps, (q, k, v, i_gate, f_gate, state, norm),
+                                         split=(None, None, 3, None, None, 3, None),
+                                         out_split=(3, 3, None))
 
-    hflat = head_reshape(h.transpose(1, 2), (B, S, inner), H, dim=2).to(dt)
-    hflat = rms_norm(hflat, p["out_norm"], cfg.norm_eps)
-    out = (hflat * F.silu(z)) @ p["w_down"].to(dt)
+    hflat = head_reshape(h.transpose(1, 2).to(dt), (B, S, inner), H, dim=2)
+    # sharded: the norm over whole rows, then each rank its gate columns
+    hflat = like(rms_norm(hflat, whole(p["out_norm"]), cfg.norm_eps), z)
+    out = linear(hflat * F.silu(z), p["w_down"].to(dt))
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["state"].copy_(new_state)
@@ -221,7 +249,7 @@ def slstm_forward(
     B, S, D = x.shape
     W = cfg.rnn_width or cfg.d_model
     dt = x.dtype
-    pre = (x @ p["w_in"].to(dt)).to(_F32)  # (B,S,4W)
+    pre = linear(x, p["w_in"].to(dt)).to(_F32)  # (B,S,4W)
 
     if cache is not None:
         c, n, h, m = (cache[k].to(_F32) for k in ("c", "n", "h", "m"))
@@ -250,8 +278,8 @@ def slstm_forward(
     # row by row: a sharded trace runs the loop on each rank's rows
     hseq, c, n, h, m = batch_local(scan, (pre, c, n, h, m), (p["r"].to(_F32), p["b"]))
     hseq = hseq.to(dt)
-    hseq = rms_norm(hseq, p["out_norm"], cfg.norm_eps)
-    out = hseq @ p["w_down"].to(dt)
+    hseq = rms_norm(hseq, whole(p["out_norm"]), cfg.norm_eps)
+    out = linear(hseq, p["w_down"].to(dt))
     if cache is not None:
         for key, val in (("c", c), ("n", n), ("h", h), ("m", m)):
             cache[key].copy_(val)

@@ -51,7 +51,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adam import tree_map
-from repro_torch.sharding.dtensor import embed_lookup, head_reshape
+from repro_torch.sharding.dtensor import embed_lookup, head_reshape, linear, vocab_logits
 
 Cache = dict[str, Any]
 
@@ -183,8 +183,8 @@ def layer_forward(
             # prefill / training: project the encoder's output to cross K/V
             B, T, _ = encoder_out.shape
             shape = (B, T, cfg.num_kv_heads, cfg.resolved_head_dim)
-            kv = tuple(head_reshape(encoder_out @ p["cross"][w].to(dt), shape, cfg.num_kv_heads)
-                       for w in ("wk", "wv"))
+            kv = tuple(head_reshape(linear(encoder_out, p["cross"][w].to(dt)), shape,
+                                    cfg.num_kv_heads) for w in ("wk", "wv"))
             if cache is not None:
                 cache["cross_k"].copy_(kv[0])
                 cache["cross_v"].copy_(kv[1])
@@ -297,7 +297,7 @@ def _encoder_forward(p: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch
     dt = torch_dtype(cfg.dtype)
     x = frames.to(dt)
     if "enc_proj" in p:
-        x = x @ p["enc_proj"].to(dt)
+        x = linear(x, p["enc_proj"].to(dt))
     x = x + p["enc_pos"].to(dt)[None, :x.shape[1]]
 
     def body(h, lp):
@@ -306,7 +306,7 @@ def _encoder_forward(p: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch
         mask = torch.ones((h.shape[1], h.shape[1]), dtype=torch.bool, device=h.device)
         o = attn._sdpa(q, k, v, mask, cfg.num_kv_heads)
         o = head_reshape(o, (h.shape[0], h.shape[1], -1), cfg.num_heads, dim=2)
-        h = h + o @ lp["mix"]["wo"].to(h.dtype)
+        h = h + linear(o, lp["mix"]["wo"].to(h.dtype))
         h2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
         return h + apply_mlp(lp["mlp"], h2, _mlp_kind(cfg))
 
@@ -356,7 +356,7 @@ def forward(
 
     if cfg.vision is not None and patches is not None:
         pr = params["projector"]
-        pe = gelu(patches.to(dt) @ pr["w1"].to(dt)) @ pr["w2"].to(dt)
+        pe = linear(gelu(linear(patches.to(dt), pr["w1"].to(dt))), pr["w2"].to(dt))
         x = torch.cat([pe, x], dim=1)  # image tokens first
         S = x.shape[1]
 
@@ -405,9 +405,15 @@ def forward(
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (x @ head.to(dt)).to(torch.float32)
-    if cfg.padded_vocab_size != cfg.vocab_size:
-        # mask the pad slots (targets never reference them)
-        pad_mask = torch.arange(cfg.padded_vocab_size, device=dev) < cfg.vocab_size
-        logits = torch.where(pad_mask, logits, -1e30)
+
+    def head_logits(h, w, v0):  # the columns of w are vocab ids v0, v0 + 1, ...
+        logits = (h @ w.to(dt)).to(torch.float32)
+        if cfg.padded_vocab_size != cfg.vocab_size:
+            # mask the pad slots (targets never reference them)
+            pad_mask = torch.arange(v0, v0 + w.shape[-1], device=dev) < cfg.vocab_size
+            logits = torch.where(pad_mask, logits, -1e30)
+        return logits
+
+    # sharded: each rank its batch rows by its vocab shard, the logits split as the vocab
+    logits = vocab_logits(x, head, head_logits)
     return logits, cache, aux_total

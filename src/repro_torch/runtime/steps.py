@@ -27,7 +27,7 @@ from repro_torch.optim.adam import (
     tree_leaves,
     tree_map,
 )
-from repro_torch.sharding.dtensor import is_dtensor, sharded_cache, vocab_parallel_ce
+from repro_torch.sharding.dtensor import is_dtensor, like, sharded_cache, vocab_parallel_ce
 
 
 class TrainState(NamedTuple):
@@ -70,7 +70,9 @@ def _value_and_grad(params, cfg: ModelConfig, batch):
     live = tree_map(lambda a: a.detach().requires_grad_(True), params)
     loss, ce, aux = _loss_fn(live, cfg, batch)
     grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
-    return (loss.detach(), ce.detach(), aux.detach()), tree_map(lambda _: next(grads), live)
+    # sharded: each gradient's pending sums reduced to its parameter's layout
+    return (loss.detach(), ce.detach(), aux.detach()), tree_map(lambda p: like(next(grads), p),
+                                                                 live)
 
 
 def make_train_step(

@@ -8,6 +8,19 @@ GSPMD reshards a tensor whenever a reshape splits a sharded dim unevenly
 alone may not). DTensor refuses such a view instead, so the models call
 :func:`reshard_for_heads` before each head reshape: it makes GSPMD's
 implicit all-gather explicit.
+
+Where DTensor would choose a layout by its own cost model (a product's
+strategy, which changes between torch versions), the models call a
+helper that lays its operands out explicitly, as Megatron writes a
+tensor-parallel layer: :func:`linear` (column- and row-parallel
+products), :func:`vocab_logits` (the LM head), :func:`embed_lookup`,
+:func:`vocab_parallel_ce`, :func:`heads_local` (attention's core) and
+:func:`batch_local` (the recurrent loops). Each runs local products on
+local shards and issues its collectives itself, so a trace's record
+depends on the port's code alone. A replicated operand's gradient is a
+sum over the mesh axes its partners are split on (``grad_placements``),
+as a tensor-parallel backward sums it. These paths are traced on fake
+tensors (``launch.dryrun``); none runs sharded on real data.
 """
 from __future__ import annotations
 
@@ -151,9 +164,13 @@ def moe_forward_sharded(p, cfg, x):
     x_pl = [Shard(0) if (j != jm and shard_b) else Replicate() for j in range(len(names))]
     rep = [Replicate()] * len(names)
     w_pl = [Shard(0) if j == jm else Replicate() for j in range(len(names))]
-    local = {"router": p["router"].redistribute(dmesh, rep).to_local()}
+
+    def over_tokens(pl):  # a weight's gradient sums over the axes that split the tokens
+        return _summed(dmesh, pl, lambda j: x_pl[j].is_shard())
+
+    local = {"router": _to_local(p["router"], dmesh, rep, over_tokens(rep))}
     for w in ("w_gate", "w_up", "w_down"):
-        local[w] = p[w].redistribute(dmesh, w_pl).to_local()
+        local[w] = _to_local(p[w], dmesh, w_pl, over_tokens(w_pl))
     cfg_l = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_shared=0))
     out_l, aux_l = moe._moe_forward_spmd(local, cfg_l, x.redistribute(dmesh, x_pl).to_local(),
                                          dmesh.get_group("model"))
@@ -181,11 +198,8 @@ def write_slot(buf, slot, new) -> None:
     bl = buf.to_local()
     nl = new.redistribute(dmesh, new_pl).to_local().to(bl.dtype)
     L = bl.shape[1]
-    chunk = 0  # this rank's chunk of the sequence dim, row-major over seq_dims
-    coord = dmesh.get_coordinate()
-    for j in seq_dims:
-        chunk = chunk * dmesh.shape[j] + coord[j]
-    local = torch.as_tensor(slot, device=bl.device).reshape(1).to(torch.long) - chunk * L
+    local = (torch.as_tensor(slot, device=bl.device).reshape(1).to(torch.long)
+             - _chunk(dmesh, seq_dims) * L)
     idx = local.clamp(0, L - 1)
     if seq_dims:
         inside = ((local >= 0) & (local < L)).reshape((1,) * bl.ndim)
@@ -193,43 +207,168 @@ def write_slot(buf, slot, new) -> None:
     bl.index_copy_(1, idx, nl)
 
 
-def batch_local(fn, batched, replicated=()):
+def batch_local(fn, batched, replicated=(), split=None, out_split=None):
     """``fn(*batched, *replicated)`` where every tensor in ``batched`` leads
     with the batch dim and ``fn`` works row by row (the xLSTM's time
     loops): plain tensors go straight in. With DTensors each rank runs
     ``fn`` on its own batch rows and the replicated rest, and the outputs
     (each leading with the batch dim) come back as DTensors sharded as the
     batch: the same local work, without DTensor's dispatch at every step
-    of the loop."""
+    of the loop. A None passes as it is, in and out.
+
+    ``split`` (an entry an argument, ``batched`` then ``replicated``: a dim,
+    or None) names dims along which ``fn`` is independent too (the mLSTM's
+    value dim, the channels of a conv or a gate): where the model axis
+    divides each of them, each rank takes its slice of those dims and the
+    rest whole, and the outputs' dims ``out_split`` come back split over
+    the model axis (the others, which every rank computes whole,
+    replicated; since the whole arguments' gradients then sum over the
+    model axis, each rank backpropagates 1/n of such an output's
+    gradient, so that the sum counts it once)."""
+    args = (*batched, *replicated)
     ref = next((a for a in batched if is_dtensor(a)), None)
     if ref is None and not any(is_dtensor(a) for a in replicated):
-        return fn(*batched, *replicated)
-    from torch.distributed.tensor import DTensor, Replicate
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
     dmesh = (ref if ref is not None else next(a for a in replicated if is_dtensor(a))).device_mesh
     rep = [Replicate()] * dmesh.ndim
     rows = _rows_layout(dmesh, ref) if ref is not None else rep
-    outs = fn(*(_to_local(a, dmesh, rows) for a in batched),
-              *(_to_local(a, dmesh, rep) for a in replicated))
-    return tuple(DTensor.from_local(o, dmesh, rows, run_check=False) for o in outs)
+    jm = _model_dim(dmesh)
+    n = dmesh.shape[jm] if jm is not None else 1
+    split = split or (None,) * len(args)
+    if n == 1 or all(d is None for d in split) or any(
+            d is not None and a is not None and a.shape[d] % n
+            for a, d in zip(args, split, strict=True)):
+        split, out_split = (None,) * len(args), None
+    on_model = any(d is not None for d in split)
+
+    def lay(base, d):  # ``base`` with dim d over "model"
+        return [Shard(d) if j == jm and d is not None else pl for j, pl in enumerate(base)]
+
+    def local(i, a, d):
+        base = rows if i < len(batched) else rep
+        # a whole argument's gradient sums over the model axis when the
+        # others are split, and a replicated one's over the batch axes too
+        return _to_local(a, dmesh, lay(base, d), _summed(
+            dmesh, lay(base, d), lambda j: (j == jm and on_model and d is None)
+            or (i >= len(batched) and rows[j].is_shard())))
+
+    outs = fn(*(a if a is None else local(i, a, d)
+                for i, (a, d) in enumerate(zip(args, split, strict=True))))
+    out_split = out_split or (None,) * len(outs)
+    return tuple(o if o is None else DTensor.from_local(
+        _SharedGrad.apply(o, n) if on_model and d is None else o, dmesh, lay(rows, d),
+        run_check=False) for o, d in zip(outs, out_split, strict=True))
 
 
-def _rows_layout(dmesh, ref, head_dim=None, split_heads=False) -> list:
+class _SharedGrad(torch.autograd.Function):
+    """Forward: the tensor as it is. Backward: its gradient over ``n``, the
+    share of one of the n ranks that each compute the tensor whole from
+    operands whose gradients sum over those ranks (DTensor's partition of
+    a replicated value into a pending sum)."""
+
+    @staticmethod
+    def forward(ctx, t, n):
+        ctx.n = n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.n, None
+
+
+def like(t, ref):
+    """``t`` laid out as ``ref`` (a DTensor of the same shape): a plain
+    ``t`` as it is. Where two operands of an elementwise op, or a
+    gradient and its parameter, meet in different layouts, DTensor would
+    choose which to move by its own cost model; this moves ``t``."""
+    if not is_dtensor(t) or not is_dtensor(ref) or tuple(t.placements) == tuple(ref.placements):
+        return t
+    return t.redistribute(ref.device_mesh, ref.placements)
+
+
+def whole(t):
+    """``t`` (a parameter) whole on every rank: a plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
+def _rows_layout(dmesh, ref) -> list:
     """Placements for a tensor that leads with the batch dim: Shard(0)
-    where ``ref`` shards its batch, the heads at ``head_dim`` over "model"
-    when ``split_heads``, Replicate elsewhere."""
+    where ``ref`` shards its batch over a mesh dim other than "model",
+    Replicate elsewhere."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = tuple(dmesh.mesh_dim_names)
-    out = []
-    for j, pl in enumerate(ref.placements):
-        if pl.is_shard() and pl.dim == 0 and names[j] != "model":
-            out.append(Shard(0))
-        elif split_heads and head_dim is not None and names[j] == "model":
-            out.append(Shard(head_dim))
-        else:
-            out.append(Replicate())
-    return out
+    return [Shard(0) if pl.is_shard() and pl.dim == 0 and names[j] != "model" else Replicate()
+            for j, pl in enumerate(ref.placements)]
+
+
+def linear(x, w):
+    """``x @ w``, x (..., K) leading with its batch rows, w (K, N): a plain
+    tensor is multiplied and nothing else. Sharded, it is Megatron's
+    layer, chosen by how the rules lay ``w`` out over the model axis: N
+    split (column-parallel): each rank multiplies x whole by its columns,
+    and the output is split as N; K split (row-parallel): each rank
+    multiplies its slice of x's K by its rows, and one all-reduce sums
+    them; neither: each rank forms the whole product. x keeps its batch
+    rows on their data axes; the weight is gathered on any other axis
+    (FSDP's gather), and its gradient sums over the batch axes."""
+    if not is_dtensor(x) and not is_dtensor(w):
+        return x @ w
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dmesh = (x if is_dtensor(x) else w).device_mesh
+    jm = _model_dim(dmesh)
+    rows = _rows_layout(dmesh, x) if is_dtensor(x) else [Replicate()] * dmesh.ndim
+    last, wk = x.ndim - 1, w.ndim - 2
+    wm = w.placements[jm] if is_dtensor(w) and jm is not None else Replicate()
+    col = wm.is_shard() and wm.dim % w.ndim == w.ndim - 1 and dmesh.shape[jm] > 1
+    row = wm.is_shard() and wm.dim % w.ndim == wk and dmesh.shape[jm] > 1
+    w_pl = [(Shard(w.ndim - 1) if col else Shard(wk) if row else Replicate())
+            if j == jm else Replicate() for j in range(dmesh.ndim)]
+    wl = _to_local(w, dmesh, w_pl, _summed(dmesh, w_pl, lambda j: rows[j].is_shard()))
+
+    def with_model(pl):
+        return [pl if j == jm else r for j, r in enumerate(rows)]
+
+    if col:
+        xl = _to_local(x, dmesh, rows, with_model(Partial()))
+        return DTensor.from_local(xl @ wl, dmesh, with_model(Shard(last)), run_check=False)
+    if row:
+        xl = _to_local(x, dmesh, with_model(Shard(last)))
+        out = DTensor.from_local(xl @ wl, dmesh, with_model(Partial()), run_check=False)
+        return out.redistribute(dmesh, rows)
+    return DTensor.from_local(_to_local(x, dmesh, rows) @ wl, dmesh, rows, run_check=False)
+
+
+def vocab_logits(x, head, fn):
+    """The LM head: ``fn(x, head, 0)``, where ``fn(h, w, v0)`` forms the
+    logits of ``h`` (B, S, D) against the columns of ``w`` that start at
+    vocab id ``v0``, for ``head`` (D, V). Sharded, as :func:`embed_lookup`
+    on the input side, each rank multiplies its batch rows by its vocab
+    shard of ``head``, and the logits come back (B, S, V) split as the
+    vocab: the loss (:func:`vocab_parallel_ce`) and a prefill's last
+    position read them shard by shard, and nothing gathers them."""
+    if not is_dtensor(x) and not is_dtensor(head):
+        return fn(x, head, 0)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    dmesh = (x if is_dtensor(x) else head).device_mesh
+    vocab = [j for j, pl in enumerate(head.placements) if pl.is_shard() and pl.dim % 2 == 1] \
+        if is_dtensor(head) else []
+    rows = _rows_layout(dmesh, x) if is_dtensor(x) else [Replicate()] * dmesh.ndim
+    rows = [Replicate() if j in vocab else pl for j, pl in enumerate(rows)]
+    w_pl = [Shard(1) if j in vocab else Replicate() for j in range(dmesh.ndim)]
+    xl = _to_local(x, dmesh, rows, _summed(dmesh, rows, lambda j: j in vocab))
+    wl = _to_local(head, dmesh, w_pl, _summed(dmesh, w_pl, lambda j: rows[j].is_shard()))
+    out = fn(xl, wl, _chunk(dmesh, vocab) * wl.shape[1])
+    return DTensor.from_local(out, dmesh, [Shard(x.ndim - 1) if j in vocab else pl
+                                           for j, pl in enumerate(rows)], run_check=False)
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -246,44 +385,116 @@ class _ContiguousGrad(torch.autograd.Function):
         return grad.contiguous()
 
 
-def _to_local(a, dmesh, placements):
-    """``a`` laid out as ``placements`` on ``dmesh``, this rank's shard."""
+def _to_local(a, dmesh, placements, grad=None):
+    """``a`` laid out as ``placements`` on ``dmesh``, this rank's shard; its
+    gradient comes back laid out as ``grad`` (default ``placements``)."""
     from torch.distributed.tensor import DTensor, Replicate
 
     if not is_dtensor(a):
         a = DTensor.from_local(a, dmesh, [Replicate()] * dmesh.ndim, run_check=False)
-    return _ContiguousGrad.apply(a.redistribute(dmesh, placements).to_local())
+    local = a.redistribute(dmesh, placements).to_local(grad_placements=grad)
+    return _ContiguousGrad.apply(local)
 
 
-def heads_local(fn, args, head_dims):
-    """``fn(*args)``, attention's core: every tensor in ``args`` leads with
-    the batch dim and holds its heads at ``head_dims[i]`` (None: no head
-    dim, as MLA's shared rope key); the output leads with the batch and
-    holds its heads at ``head_dims[0]``. Plain tensors go straight in.
-    With DTensors each rank runs ``fn`` on its batch rows (as the first
-    argument shards them) and, where every head count divides the model
-    axis, on its heads, the rest gathered first: the work is parallel over
-    both, so nothing else moves. A sequence-sharded argument (the
-    ``long_500k`` cache) needs a softmax across ranks: DTensor runs ``fn``
-    then."""
+def _summed(dmesh, placements, over) -> list:
+    """``placements`` with a pending sum (``Partial``) on each mesh dim of
+    size > 1 for which ``over(j)`` holds: the gradient layout of an operand
+    every rank of those dims holds whole while its partner is split."""
+    from torch.distributed.tensor import Partial
+
+    return [Partial() if dmesh.shape[j] > 1 and over(j) else pl
+            for j, pl in enumerate(placements)]
+
+
+def _model_dim(dmesh):
+    """The index of the mesh's "model" dim, or None."""
+    names = tuple(dmesh.mesh_dim_names)
+    return names.index("model") if "model" in names else None
+
+
+def _chunk(dmesh, dims) -> int:
+    """This rank's chunk index of a dim split over the mesh dims ``dims``
+    (row-major)."""
+    chunk, coord = 0, dmesh.get_coordinate()
+    for j in dims:
+        chunk = chunk * dmesh.shape[j] + coord[j]
+    return chunk
+
+
+def heads_local(fn, args, head_dims, n_query: int = 1):
+    """``fn(*args, 0)``, attention's core: the first ``n_query`` tensors of
+    ``args`` are the query side (B, S, ...), the rest the key side (B, T,
+    ...); each holds its heads at ``head_dims[i]`` (None: no head dim, as
+    MLA's shared rope key); the output leads with the batch and holds its
+    heads at ``head_dims[0]``. ``fn(*args, q0)`` attends the query
+    positions from ``q0`` on. Plain tensors go straight in. With DTensors
+    each rank runs ``fn`` on its batch rows (as the first argument shards
+    them), splitting the model axis (n ranks) the first of three ways that
+    applies:
+
+      (a) over heads, where n divides every head count;
+      (b) over query heads with the key head their group reads, where n
+          divides the H query heads and the KV key heads divide n: a
+          rank's H/n query heads fall in one group, so it slices that key
+          head from the whole keys (local KV 1, local G = H/n);
+      (c) over query positions, where n divides S > 1: each rank attends
+          its S/n query rows (``q0`` its offset) against the whole keys,
+          and the output is gathered over the model axis.
+
+    Otherwise (decode's one position) every rank attends every head of its
+    rows. Each rank's work is exactly rows or heads of the plain
+    attention. A sequence-sharded key (the ``long_500k`` cache) needs a
+    softmax across ranks: DTensor runs ``fn`` then."""
     if not any(is_dtensor(a) for a in args):
-        return fn(*args)
-    from torch.distributed.tensor import DTensor
+        return fn(*args, 0)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
     if any(is_dtensor(a) and any(pl.is_shard() and pl.dim % a.ndim not in (0, hd)
                                  for pl in a.placements)
            for a, hd in zip(args, head_dims, strict=True) if hd is not None):
-        return fn(*args)
+        return fn(*args, 0)
     ref = next(a for a in args if is_dtensor(a))
     dmesh = ref.device_mesh
-    names = tuple(dmesh.mesh_dim_names)
-    n = dmesh.shape[names.index("model")] if "model" in names else 1
-    split = n > 1 and all(a.shape[hd] % n == 0 for a, hd in zip(args, head_dims) if hd is not None)
-    lead = args[0] if is_dtensor(args[0]) else ref
-    out = fn(*(_to_local(a, dmesh, _rows_layout(dmesh, lead, hd, split))
-               for a, hd in zip(args, head_dims, strict=True)))
-    return DTensor.from_local(out, dmesh, _rows_layout(dmesh, lead, head_dims[0], split),
-                              run_check=False)
+    jm = _model_dim(dmesh)
+    n = dmesh.shape[jm] if jm is not None else 1
+    rows = _rows_layout(dmesh, args[0] if is_dtensor(args[0]) else ref)
+    queries = [a.shape[hd] for a, hd in zip(args[:n_query], head_dims) if hd is not None]
+    keys = [a.shape[hd] for a, hd in zip(args[n_query:], head_dims[n_query:]) if hd is not None]
+    S = args[0].shape[1]
+    if n == 1 or all(h % n == 0 for h in queries + keys):
+        how = "heads"
+    elif all(h % n == 0 for h in queries) and all(n % kv == 0 for kv in keys):
+        how = "group"
+    elif S > 1 and S % n == 0:
+        how = "rows"
+    else:
+        how = "whole"
+
+    def lay(i, hd):  # argument i's layout
+        query = i < n_query
+        if how == "heads" and hd is not None or how == "group" and query:
+            split = Shard(hd)
+        elif how == "rows" and query:
+            split = Shard(1)
+        else:
+            split = Replicate()
+        return [split if j == jm else pl for j, pl in enumerate(rows)]
+
+    def grad(i, hd, pl):  # a whole key whose queries are split: its gradient is a sum
+        return _summed(dmesh, pl, lambda j: j == jm and i >= n_query and how != "whole"
+                       and pl[j] == Replicate())
+
+    r = dmesh.get_coordinate()[jm] if jm is not None else 0
+    local = []
+    for i, (a, hd) in enumerate(zip(args, head_dims, strict=True)):
+        pl = lay(i, hd)
+        al = _to_local(a, dmesh, pl, grad(i, hd, pl))
+        if how == "group" and i >= n_query and hd is not None:
+            al = al.narrow(hd, r * a.shape[hd] // n, 1)  # the key head of this rank's group
+        local.append(al)
+    q0 = r * (S // n) if how == "rows" else 0
+    out = DTensor.from_local(fn(*local, q0), dmesh, lay(0, head_dims[0]), run_check=False)
+    return out.redistribute(dmesh, rows) if how == "rows" else out
 
 
 def embed_lookup(table, ids):
@@ -300,16 +511,13 @@ def embed_lookup(table, ids):
         if is_dtensor(table) else []
     ids_pl = _rows_layout(dmesh, ids) if is_dtensor(ids) else [Replicate()] * dmesh.ndim
     ids_pl = [Replicate() if j in vocab else pl for j, pl in enumerate(ids_pl)]
-    tl = _to_local(table, dmesh, [Shard(0) if j in vocab else Replicate()
-                                  for j in range(dmesh.ndim)])
+    t_pl = [Shard(0) if j in vocab else Replicate() for j in range(dmesh.ndim)]
+    tl = _to_local(table, dmesh, t_pl, _summed(dmesh, t_pl, lambda j: ids_pl[j].is_shard()))
     il = _to_local(ids, dmesh, ids_pl).to(torch.long)
     if not vocab:
         return DTensor.from_local(tl[il], dmesh, ids_pl, run_check=False)
-    chunk, coord = 0, dmesh.get_coordinate()
-    for j in vocab:
-        chunk = chunk * dmesh.shape[j] + coord[j]
     rows = tl.shape[0]
-    local = il - chunk * rows
+    local = il - _chunk(dmesh, vocab) * rows
     inside = ((local >= 0) & (local < rows)).to(tl.dtype)[..., None]
     out = tl[local.clamp(0, rows - 1)] * inside
     part = [Partial() if j in vocab else pl for j, pl in enumerate(ids_pl)]
@@ -319,10 +527,11 @@ def embed_lookup(table, ids):
 def vocab_parallel_ce(logits, targets, ce):
     """``ce(logits, targets)`` (the mean token cross-entropy) on DTensor
     logits (B, S, V): batch rows over the data axes, the vocab over the
-    axes that shard it. Each rank takes its rows' max, sum of exponentials
-    and gold logit over its vocab shard; the vocab's axes reduce them (a
-    max and two sums), the batch's average the loss. With the vocab whole
-    on each rank, ``ce`` runs on the rank's rows."""
+    axes that shard it (:func:`vocab_logits` splits it over "model"). Each
+    rank takes its rows' max, sum of exponentials and gold logit over its
+    vocab shard; the vocab's axes reduce them (a max and two sums), the
+    batch's average the loss. With the vocab whole on each rank, ``ce``
+    runs on the rank's rows."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     dmesh = logits.device_mesh
@@ -341,10 +550,7 @@ def vocab_parallel_ce(logits, targets, ce):
     if vocab:
         m = reduce(ll.detach().amax(-1), "max")
         logz = m + torch.log(reduce(torch.exp(ll - m[..., None]).sum(-1), "sum"))
-        chunk, coord = 0, dmesh.get_coordinate()
-        for j in vocab:
-            chunk = chunk * dmesh.shape[j] + coord[j]
-        local = tl.to(torch.long) - chunk * ll.shape[-1]
+        local = tl.to(torch.long) - _chunk(dmesh, vocab) * ll.shape[-1]
         inside = (local >= 0) & (local < ll.shape[-1])
         gold = torch.gather(ll, -1, local.clamp(0, ll.shape[-1] - 1)[..., None])[..., 0]
         loss = torch.mean(logz - reduce(gold * inside, "sum"))

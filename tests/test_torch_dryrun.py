@@ -16,7 +16,7 @@ its local shards (``launch.hlo_analysis.Trace``). Held here:
     replicates a head dim the mesh does not divide;
   * the PSVGP step at 4x4: rank 0's SPMD step moves one mini-batch by
     collective-permute (under 10 MB) and all-reduces its loss; the gather
-    step all-gathers;
+    step all-gathers its data and all-reduces its loss, JAX's record;
   * slow, as JAX's ``tests/test_dryrun.py``: the CLI on its four cases
     and on ``--psvgp``, as subprocesses.
 """
@@ -243,7 +243,16 @@ def test_psvgp_traces_at_4x4():
     assert kinds == {"collective-permute": B * (d + 2) * 4, "all-reduce": 4}
     assert kinds["collective-permute"] < 10e6
     gather = dryrun.psvgp_gather_trace(MESH4, exp=exp)
-    assert set(hlo_analysis.collective_bytes(gather)) == {"all-gather"}
+    # JAX's record: the step gathers x, y, the mask and the sources' masks
+    # whole (P x n_max rows of d + 3 floats; 1,146,880 B at 16 x 16), and
+    # all-reduces the loss it returns replicated
+    P = 16
+
+    def gathered(cells):
+        return cells * dryrun.N_MAX * (d + 3) * 4
+
+    assert gathered(256) == 1146880
+    assert hlo_analysis.collective_bytes(gather) == {"all-gather": gathered(P), "all-reduce": 4}
     # the multi-pod grid's 32 rows are pod x data
     grid = make_grid(torch.zeros((1, 2)).numpy(), 16, 32, bounds=(0.0, 10.0, 0.0, 10.0))
     mesh = make_production_mesh(multi_pod=True)
