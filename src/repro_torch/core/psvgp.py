@@ -38,6 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import posterior, svgp
 from repro_torch.core.neighbors import direction_permutations, neighbor_table
 from repro_torch.core.partition import PartitionedData
@@ -106,10 +107,11 @@ def build(cfg: PSVGPConfig, data: PartitionedData) -> PSVGPStatic:
 def init(seed: int, cfg: PSVGPConfig, data: PartitionedData) -> PSVGPState:
     """Fresh params (inducing points drawn from each cell's valid rows) and
     zeroed Adam moments, from a generator seeded by ``seed`` alone."""
-    gen = torch.Generator(device=data.x.device)
-    gen.manual_seed(stream_seed(seed, "init"))
-    params = svgp.init_svgp_params(gen, cfg.svgp, data.x, data.mask)
-    return PSVGPState(params=params, opt=adam_init(params), step=0)
+    with trace.span("psvgp.init"):
+        gen = torch.Generator(device=data.x.device)
+        gen.manual_seed(stream_seed(seed, "init"))
+        params = svgp.init_svgp_params(gen, cfg.svgp, data.x, data.mask)
+        return PSVGPState(params=params, opt=adam_init(params), step=0)
 
 
 def _sgd_step(state, bx, by, bm, n_eff, cfg: PSVGPConfig, cov_fn, ll_weight=1.0):
@@ -259,20 +261,55 @@ def fit(
     plain loop. A capture or replay that fails raises."""
     seed = static.cfg.seed if seed is None else seed
     end = (state.step + num_iters, state.opt.step + num_iters)
-    state = device_counters(state, data.x.device)
-    if use_scan and not log_every:
-        warm = min(num_iters, WARMUP_STEPS)
-        state = _warm_up(static, state, data, seed, warm)
-        if num_iters > warm:
-            captured = CapturedStep(static, state, data, seed)
-            captured.replay(num_iters - warm)
+    dev = data.x.device
+    with trace.span("psvgp.fit") as root:
+        before = _memory(dev) if root.on else None
+        state = device_counters(state, dev)
+        if use_scan and not log_every:
+            state = _fit_captured(static, state, data, seed, num_iters)
+        else:
+            for i in range(num_iters):
+                state, loss = train_step(static, state, data, seed)
+                if log_every and (i + 1) % log_every == 0:
+                    print(f"  iter {i + 1:5d}  mean -ELBO/partition: {float(loss):.4f}")
+        state = PSVGPState(state.params, state.opt._replace(step=end[1]), end[0])
+        if before is not None:  # traced on CUDA: what the fit leaves allocated beyond its state
+            grew = _memory_delta(before, dev)
+            own = sum(t.numel() * t.element_size()
+                      for t in tree_leaves((state.params, state.opt.mu, state.opt.nu)))
+            root.set(retained_bytes=grew["allocated"] - own,
+                     device_allocs=grew["device_allocs"], device_frees=grew["device_frees"])
+    return state
+
+
+def _fit_captured(static: PSVGPStatic, state: PSVGPState, data: PartitionedData, seed: int,
+                  num_iters: int) -> PSVGPState:
+    """:func:`fit`'s captured lane: the eager warm-up, then one captured
+    step replayed (freed on return)."""
+    warm = min(num_iters, WARMUP_STEPS)
+    state = _warm_up(static, state, data, seed, warm)
+    if num_iters > warm:
+        captured = CapturedStep(static, state, data, seed)
+        captured.replay(num_iters - warm)
+        with trace.span("psvgp.copy_out"):
             state = captured.state()
-    else:
-        for i in range(num_iters):
-            state, loss = train_step(static, state, data, seed)
-            if log_every and (i + 1) % log_every == 0:
-                print(f"  iter {i + 1:5d}  mean -ELBO/partition: {float(loss):.4f}")
-    return PSVGPState(state.params, state.opt._replace(step=end[1]), end[0])
+    return state
+
+
+def _memory(dev: torch.device) -> dict | None:
+    """The caching allocator's counts that traced spans report (bytes
+    allocated and reserved, cudaMalloc and cudaFree calls), None off CUDA."""
+    if dev.type != "cuda":
+        return None
+    stats = torch.cuda.memory_stats(dev)
+    return {"allocated": stats["allocated_bytes.all.current"],
+            "reserved": stats["reserved_bytes.all.current"],
+            "device_allocs": stats["num_device_alloc"], "device_frees": stats["num_device_free"]}
+
+
+def _memory_delta(before: dict, dev: torch.device) -> dict:
+    after = _memory(dev)
+    return {k: after[k] - v for k, v in before.items()}
 
 
 def _warm_up(static: PSVGPStatic, state: PSVGPState, data: PartitionedData, seed: int,
@@ -280,14 +317,15 @@ def _warm_up(static: PSVGPStatic, state: PSVGPState, data: PartitionedData, seed
     """``n`` eager steps before a capture: on CUDA on a side stream, as
     torch asks of a capture's warm-up, then joined to the current stream."""
     dev = data.x.device
-    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-    if side is not None:
-        side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
-        for _ in range(n):
-            state, _loss = train_step(static, state, data, seed)
-    if side is not None:
-        torch.cuda.current_stream(dev).wait_stream(side)
+    with trace.span("psvgp.warm_up"):
+        side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        if side is not None:
+            side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
+            for _ in range(n):
+                state, _loss = train_step(static, state, data, seed)
+        if side is not None:
+            torch.cuda.current_stream(dev).wait_stream(side)
     return state
 
 
@@ -323,11 +361,18 @@ class CapturedStep:
         self.buffers = tree_map(torch.clone, state)
         self.graph = None
         self.launches: dict = {}
-        if data.x.device.type == "cuda":
+        dev = data.x.device
+        if dev.type == "cuda":
             self.graph = torch.cuda.CUDAGraph()
             before = dict(svgp_proj.LAUNCHES)
-            with torch.cuda.graph(self.graph):
-                self._step()
+            with trace.span("psvgp.capture") as sp:
+                memory = _memory(dev) if sp.on else None
+                with torch.cuda.graph(self.graph):
+                    with trace.span("psvgp.capture.step"):  # host-only inside the capture
+                        self._step()
+                if sp.on:
+                    grew = _memory_delta(memory, dev)
+                    sp.set(reserved_bytes=grew["reserved"], device_allocs=grew["device_allocs"])
             self.launches = svgp_proj.captured_launches(before)
 
     def _step(self) -> None:
@@ -336,13 +381,25 @@ class CapturedStep:
             dst.copy_(src)
 
     def replay(self, n: int = 1) -> None:
-        """Run ``n`` more steps."""
-        for _ in range(n):
-            if self.graph is None:
-                self._step()
-            else:
-                self.graph.replay()
-        svgp_proj.count_replays(self.launches, n)
+        """Run ``n`` more steps. Traced, the span carries the replays and,
+        on CUDA, ``device_ms`` from two events recorded outside the graph."""
+        with trace.span("psvgp.replay") as sp:
+            events = None
+            if sp.on and self.graph is not None:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
+            for _ in range(n):
+                if self.graph is None:
+                    self._step()
+                else:
+                    self.graph.replay()
+            svgp_proj.count_replays(self.launches, n)
+            if sp.on:
+                sp.set(replays=n)
+                if events is not None:
+                    events[1].record()
+                    sp.device_ms(*events)
 
     def state(self) -> PSVGPState:
         """A fresh copy of the state (counters still device tensors)."""
