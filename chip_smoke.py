@@ -22,7 +22,10 @@ Phases, each printed as it runs; any failure exits non-zero:
               factors), at every m in {1, 10, 17, 64} x B in
               {1, 33, 200} (P = 1, d up to 4) and at B = 65,536 with m = 64;
               then the gradient of the autograd Function against
-              plain-version autograd. Wide: every entry at m in {65, 128,
+              plain-version autograd; the Adam kernel bitwise the plain
+              formula at the benchmark cells' (P, N) = (400, 44),
+              (400, 464), (6,400, 44), t in {1, 2,500}, host and device
+              counters, out of place and in place. Wide: every entry at m in {65, 128,
               256, 1,024, 2,048} and d in {5, 8} with ragged Q and B (the
               wide body), K(X, Z)'s knm bitwise the projection's, and the
               gradient at m = 128.
@@ -35,7 +38,8 @@ Phases, each printed as it runs; any failure exits non-zero:
               against the JAX replicated answers.
   5. training api.fit at the paper's configuration (48,602 points, 20 x 20
               cells, m 5, delta 0.125, batch 32, lr 0.05, 2,500 steps) on
-              the card: one projection launch per step, in-sample RMSPE and
+              the card: one projection and one Adam launch per step
+              (adam.LAUNCHES zeroed before the fit), in-sample RMSPE and
               boundary RMSD inside the band of the JAX package's seeds,
               save -> load -> serve bitwise, a ppermute fit, a warm refit,
               refit(scratch) == fit bitwise. The same 2,500-step fit through
@@ -53,7 +57,8 @@ Phases, each printed as it runs; any failure exits non-zero:
               graph); every kernel, its plain version, its bound and share
               at its path's shape and at a 65,536-row batch (the slots
               kernel also at one cell's 65,536 rows; the projection also
-              at the SPMD rank's 1 x 32), and at the wide
+              at the SPMD rank's 1 x 32; the Adam kernel in place at the
+              three cells' shapes), and at the wide
               shapes beside torch.bmm of the same m x m products; p50/p95
               latency and points/s of a stream of 4,096-point requests (the
               "pallas" lane's p50 too), the host stages of a request; ms per
@@ -447,6 +452,7 @@ def check_training_kernels(torch, dev, fitted, x_main, errors: dict) -> None:
     main_args = (x_main, cache.z, cache.cov.log_lengthscale, cache.cov.log_variance, cache.w)
     errors["svgp_projection"], errors["rbf_cross_cov"] = compare(
         "training step P=400 B=32 m=5 d=2 (artifact)", main_args)
+    errors["adam_update"] = check_adam_kernel(torch, dev)
     compare("SPMD rank's step P=1 B=32 m=5 d=2 (artifact cell 0)",
             tuple(a[:1] for a in main_args))
     for i, (m, B) in enumerate((m, B) for m in (1, 10, 17, 64) for B in (1, 33, 200)):
@@ -502,6 +508,79 @@ def check_training_kernels(torch, dev, fitted, x_main, errors: dict) -> None:
           f"(P=6 B=40 m=128): worst tol ratio {worst:.3f}; one launch")
 
 
+# the Adam update's (label, P, m) at d = 2: the benchmark cells' (P, N) =
+# (400, 44), (400, 464) and (6,400, 44), N = m + m^2 + 2m + 4 floats a cell
+ADAM_SHAPES = (("main", 400, 5), ("m 20", 400, 20), ("6,400 cells", 6400, 5))
+ADAM_LR = 0.05  # the paper's E3SM operating point
+
+
+def adam_case(torch, dev, P: int, m: int, step, seed: int):
+    """Seeded params, grads and Adam state of PSVGP's leaf shapes (d = 2)
+    on the card (nu >= 0, as a second moment is)."""
+    from repro_torch.core.svgp import SVGPParams
+    from repro_torch.gp.covariances import CovarianceParams
+    from repro_torch.optim import AdamState, tree_map
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def tree(scale):
+        def r(*shape):
+            return scale * torch.randn(shape, generator=gen, device=dev)
+
+        return SVGPParams(m_star=r(P, m), s_tril=r(P, m, m), z=r(P, m, 2),
+                          cov=CovarianceParams(r(P, 2), r(P)), log_beta=r(P))
+
+    params, grads, mu = tree(1.0), tree(0.3), tree(0.1)
+    return params, grads, AdamState(step, mu, tree_map(torch.abs, tree(0.05)))
+
+
+def adam_bound(elems: int) -> tuple[float, str]:
+    """Least time (ms) for one Adam launch over ``elems`` floats: p, g, m
+    and v read once, p, mu and nu written once (28 B an element); 14
+    operations an element."""
+    return _bound(28 * elems, 14 * elems)
+
+
+def check_adam_kernel(torch, dev) -> float:
+    """Phase 3, training half: the Adam kernel (``optim.adam_update`` on
+    CUDA) against the plain formula on the same card inputs at
+    :data:`ADAM_SHAPES`, at steps 1 and 2,500, the counter on the host and
+    on the device, out of place and (device counter) in place: every leaf
+    and the counter bitwise, one launch a call. Returns the largest
+    difference (0)."""
+    from repro_torch.kernels import adam
+    from repro_torch.optim import adam_update, tree_leaves
+    from repro_torch.optim.adam import plain_adam_update
+
+    worst = 0.0
+    for label, P, m in ADAM_SHAPES:
+        for t in (1, 2500):
+            for on_device in (False, True):
+                step = torch.tensor(t - 1, device=dev) if on_device else t - 1
+                params, grads, state = adam_case(torch, dev, P, m, step, seed=P + m + t)
+                want = plain_adam_update(params, grads, state, lr=ADAM_LR)
+                before = adam.LAUNCHES["adam_update"]
+                forms = [("out of place", adam_update(params, grads, state, lr=ADAM_LR))]
+                if on_device:  # the destination is the input itself
+                    forms.append(("in place", adam_update(params, grads, state, lr=ADAM_LR,
+                                                          out=(params, state))))
+                check(adam.LAUNCHES["adam_update"] == before + len(forms),
+                      f"adam_update {label}: other than one launch a call")
+                for form, got in forms:
+                    pairs = list(zip(tree_leaves((got[0], got[1].mu, got[1].nu)),
+                                     tree_leaves((want[0], want[1].mu, want[1].nu)), strict=True))
+                    worst = max([worst] + [float((g - w).abs().max()) for g, w in pairs])
+                    where = (f"adam_update {label} t={t} "
+                             f"{'device' if on_device else 'host'} counter {form}")
+                    check(all(torch.equal(g, w) for g, w in pairs),
+                          f"{where}: not bitwise the plain formula")
+                    check(int(got[1].step) == t, f"{where}: counter {int(got[1].step)} != {t}")
+        n = sum(x.numel() for x in tree_leaves(params)) // P
+        print(f"[kernels] adam_update {label} (P, N)=({P}, {n}): bitwise the plain formula at "
+              "t in {1, 2,500}, host and device counters, out of place and in place")
+    return worst
+
+
 def train_quality(torch, fitted, data, label: str) -> tuple[float, float]:
     """In-sample RMSPE and boundary RMSD (23 probes per edge) of a model on
     the points ``data`` it was fitted to, printed with ``label``."""
@@ -525,7 +604,7 @@ def train_slice(torch, dev, card: str, report: dict, ds):
     from repro_torch.checkpoint.checkpoint import flatten
     from repro_torch.core import psvgp
     from repro_torch.data.spatial import e3sm_like_field
-    from repro_torch.kernels import predict, rbf, svgp_proj
+    from repro_torch.kernels import adam, predict, rbf, svgp_proj
 
     cfg = api.FitConfig(grid=20, m=5, delta=0.125, train_iters=2500, batch_size=32,
                         learning_rate=0.05, seed=0)
@@ -542,7 +621,7 @@ def train_slice(torch, dev, card: str, report: dict, ds):
         step_ms.append(1e3 * (time.perf_counter() - t0))
         return out
 
-    for counter in (svgp_proj, rbf, predict):
+    for counter in (svgp_proj, rbf, predict, adam):
         counter.reset_launches()
     psvgp.train_step = timed_step
     try:
@@ -551,7 +630,7 @@ def train_slice(torch, dev, card: str, report: dict, ds):
         fit_wall = time.perf_counter() - t0
     finally:
         psvgp.train_step = inner
-    launches = {**svgp_proj.LAUNCHES, **rbf.LAUNCHES, **predict.LAUNCHES}
+    launches = {**svgp_proj.LAUNCHES, **rbf.LAUNCHES, **predict.LAUNCHES, **adam.LAUNCHES}
     report["launches_training_path"] = launches
     print(f"[training] api.fit (grid 20, m 5, delta 0.125, B 32, lr 0.05, 2,500 steps) on "
           f"{fitted.device}: launches {launches}")
@@ -559,6 +638,8 @@ def train_slice(torch, dev, card: str, report: dict, ds):
           "api.fit did not train on the kernel lane of the card")
     check(launches["svgp_projection"] == cfg.train_iters,
           f"projection launches {launches['svgp_projection']} != {cfg.train_iters} steps")
+    check(launches["adam_update"] == cfg.train_iters,
+          f"Adam kernel launches {launches['adam_update']} != {cfg.train_iters} steps")
     rmspe, rmsd = train_quality(torch, fitted, ds, "port-trained, seed 0")
     report["training_quality"] = {"rmspe": rmspe, "boundary_rmsd": rmsd}
     check(0.052 <= rmspe <= 0.068, f"RMSPE {rmspe:.5f} outside [0.052, 0.068]")
@@ -1241,10 +1322,13 @@ def lifecycle_slice(torch, dev, card: str, report: dict, trained, ds) -> None:
 def training_times(torch, dev, card: str, cache, x_main, fitted, ds, report: dict) -> list:
     """Phase 6, training half: device time of the projection and K(X, Z)
     kernels at the training step's shape and at 65,536 rows (one cell's
-    factors), with their plain versions and bounds; the device's busy share
+    factors), and of the Adam kernel at :data:`ADAM_SHAPES`, with their
+    plain versions and bounds; the device's busy share
     of a training step in a profiler window of 20 steps."""
     from repro_torch.core import partition, psvgp
     from repro_torch.kernels import rbf, ref, svgp_proj
+    from repro_torch.optim import adam_update, tree_leaves
+    from repro_torch.optim.adam import plain_adam_update
 
     grid = fitted.grid
     big = torch.as_tensor(np.random.default_rng(2).uniform(
@@ -1272,6 +1356,21 @@ def training_times(torch, dev, card: str, cache, x_main, fitted, ds, report: dic
             print(f"[times] [{card}] {name} {label} (P, B)={(P, B)} m={m}: kernel "
                   f"{k_ms:.6f} ms, plain {p_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
                   f"floor {report['floor_ms']:.6f} ms")
+
+    # the Adam update at the benchmark cells' shapes: the kernel in place
+    # (device counter), as the captured step runs it, and the plain formula
+    for label, P, m in ADAM_SHAPES:
+        params, grads, opt = adam_case(torch, dev, P, m, torch.tensor(9, device=dev), seed=P + m)
+        elems = sum(x.numel() for x in tree_leaves(params))
+        k_ms = device_ms(torch, lambda p=params, g=grads, o=opt: adam_update(
+            p, g, o, lr=ADAM_LR, out=(p, o)))
+        p_ms = device_ms(torch, lambda p=params, g=grads, o=opt: plain_adam_update(
+            p, g, o, lr=ADAM_LR))
+        b_ms, b_by = adam_bound(elems)
+        rows.append(("adam_update", label, (P, elems // P), k_ms, p_ms, b_ms, b_by))
+        print(f"[times] [{card}] adam_update {label} (P, N)={(P, elems // P)}: kernel "
+              f"{k_ms:.6f} ms, plain {p_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), share "
+              f"{b_ms / k_ms:.4f}, floor {report['floor_ms']:.6f} ms")
 
     pdata = partition.partition_data(ds.x, ds.y, fitted.grid, device=dev)
     state = fitted.state
@@ -3736,6 +3835,7 @@ def run(report: dict, seed: int = 0) -> None:
         ("svgp_projection", "svgp_proj.cu", "src/repro/kernels/svgp_proj.py:47",
          "launches_training_path"),
         ("rbf_cross_cov", "svgp_proj.cu", "src/repro/kernels/rbf.py:46", "launches_rbf_path"),
+        ("adam_update", "adam.cu", "none (XLA-fused jnp)", "launches_training_path"),
     ):
         _, _, _, k_ms, p_ms, b_ms, b_by = main_row(name)
         kernels.append({

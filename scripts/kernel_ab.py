@@ -97,6 +97,11 @@ THRESHOLDS = tuple(("svgp_projection", (400, 32), m, 2) for m in THRESHOLD_MS) +
     ("posterior_predict_slots", (400, 9, 32), m, 2) for m in THRESHOLD_MS)
 
 
+# the C entries these versions are timed through (an earlier source has no
+# ``psvgp_adam_update``)
+AB_ENTRIES = ("psvgp_posterior_predict", "psvgp_svgp_projection", "psvgp_rbf_cross_cov")
+
+
 def shape_set(name: str) -> tuple:
     """The rows of ``--set name``."""
     return THRESHOLDS if name == "thresholds" else SHAPES
@@ -109,7 +114,7 @@ def build_dir(path: str):
     lib = Path(path) / "_ab" / "lib.so"
     lib.parent.mkdir(parents=True, exist_ok=True)
     build.compile_shared(sorted(Path(path).glob("*.cu")), lib)
-    return build.bind(lib)
+    return build.bind(lib, AB_ENTRIES)
 
 
 def lane_ab(torch, cs, card: str) -> dict:

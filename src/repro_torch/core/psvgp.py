@@ -16,7 +16,9 @@ loss is the sum over cells of each cell's -ELBO — cells share no parameter,
 so the gradient of the sum is each cell's own gradient, which is what the
 JAX package's per-cell ``vmap(value_and_grad)`` computes. With
 ``SVGPConfig.use_pallas`` the ELBO's projection is ONE launch of the CUDA
-kernel per step over all (P, B) rows (``kernels/ops.SVGPProjection``).
+kernel per step over all (P, B) rows (``kernels/ops.SVGPProjection``). On
+CUDA the Adam update of every leaf, with Adam's counter, is ONE launch of
+the Adam kernel (``optim.adam_update``, ``kernels/adam.py``).
 
 A step reads nothing back to the host: the draws are counter-based
 uniforms of (seed, step) (``sampler.StepDraws``), Adam's bias corrections
@@ -53,7 +55,8 @@ from repro_torch.core.sampler import (
     stream_seed,
 )
 from repro_torch.gp.covariances import CovarianceParams, make_covariance
-from repro_torch.kernels import svgp_proj
+from repro_torch.kernels import adam as adam_kernel
+from repro_torch.kernels import launches, svgp_proj
 from repro_torch.optim import AdamState, adam_init, adam_update, tree_leaves, tree_map
 from repro_torch.sharding.dtensor import rows_local
 
@@ -116,7 +119,9 @@ def init(seed: int, cfg: PSVGPConfig, data: PartitionedData) -> PSVGPState:
 
 def _sgd_step(state, bx, by, bm, n_eff, cfg: PSVGPConfig, cov_fn, ll_weight=1.0):
     """-ELBO of every cell on its mini-batch, its gradient, one Adam update.
-    Returns (new state, (P,) per-cell losses)."""
+    Returns (new state, (P,) per-cell losses). A :class:`StepBuffers`
+    ``state`` receives the new state in place, once the gradient is
+    computed; any other is left as it is."""
     scfg = cfg.svgp
     params = tree_map(lambda t: t.detach().requires_grad_(True), state.params)
     with torch.enable_grad():
@@ -128,8 +133,11 @@ def _sgd_step(state, bx, by, bm, n_eff, cfg: PSVGPConfig, cov_fn, ll_weight=1.0)
         grads = iter(torch.autograd.grad(torch.sum(losses), tree_leaves(params)))
     grads = tree_map(lambda _: next(grads), params)
     with torch.no_grad():
-        new_params, new_opt = adam_update(state.params, grads, state.opt, lr=cfg.learning_rate)
-    return PSVGPState(new_params, new_opt, state.step + 1), losses.detach()
+        into = isinstance(state, StepBuffers)
+        new_params, new_opt = adam_update(state.params, grads, state.opt, lr=cfg.learning_rate,
+                                          out=(state.params, state.opt) if into else None)
+        step = torch.add(state.step, 1, out=state.step) if into else state.step + 1
+    return PSVGPState(new_params, new_opt, step), losses.detach()
 
 
 def train_step_gather(
@@ -340,31 +348,46 @@ def device_counters(state: PSVGPState, device) -> PSVGPState:
                       counter(state.step))
 
 
+class StepBuffers(PSVGPState):
+    """:class:`CapturedStep`'s state buffers (counters as device tensors):
+    the training step writes the new state into them, where it leaves any
+    other state as it is."""
+
+    __slots__ = ()
+
+
+# the launch counts of the kernel wrappers a training step calls (the
+# projection's first: ``CapturedStep.launches``)
+COUNTED = (svgp_proj.LAUNCHES, adam_kernel.LAUNCHES)
+
+
 class CapturedStep:
     """One SGD step over static state buffers, replayed.
 
     The buffers are clones of ``state`` (counters as device tensors, see
-    :func:`fit`). A step reads them, computes the new state out of place
-    and copies it back into them, counters included, so replay t draws
-    step t's numbers. On CUDA the step is captured once into a
+    :func:`fit`), a :class:`StepBuffers`. A step reads them and writes the
+    new state back into them, counters included (on CUDA the Adam kernel
+    in place; on the CPU the plain formula, then a copy), so replay t
+    draws step t's numbers. On CUDA the step is captured once into a
     ``torch.cuda.CUDAGraph`` (on the capture's own stream; lazy
     initialization must have run, e.g. by eager steps on a side stream)
     and :meth:`replay` launches the graph; on the CPU :meth:`replay` runs
-    the same step eagerly. The projection kernel's wrapper ran once, at
-    capture, when nothing launched: ``svgp_proj.LAUNCHES`` counts the
-    launches each replay makes instead."""
+    the same step eagerly. The kernels' wrappers ran once, at capture,
+    when nothing launched: each wrapper's count in :data:`COUNTED` counts
+    the launches each replay makes instead (:attr:`captured`, one mapping
+    a count; :attr:`launches`, the projection's)."""
 
     def __init__(self, static: PSVGPStatic, state: PSVGPState, data: PartitionedData,
                  seed: int | None = None):
         self.static, self.data = static, data
         self.seed = static.cfg.seed if seed is None else seed
-        self.buffers = tree_map(torch.clone, state)
+        self.buffers = StepBuffers(*tree_map(torch.clone, state))
         self.graph = None
-        self.launches: dict = {}
+        self.captured: list[dict] = [{} for _ in COUNTED]
         dev = data.x.device
         if dev.type == "cuda":
             self.graph = torch.cuda.CUDAGraph()
-            before = dict(svgp_proj.LAUNCHES)
+            before = [dict(count) for count in COUNTED]
             with trace.span("psvgp.capture") as sp:
                 memory = _memory(dev) if sp.on else None
                 with torch.cuda.graph(self.graph):
@@ -373,12 +396,12 @@ class CapturedStep:
                 if sp.on:
                     grew = _memory_delta(memory, dev)
                     sp.set(reserved_bytes=grew["reserved"], device_allocs=grew["device_allocs"])
-            self.launches = svgp_proj.captured_launches(before)
+            self.captured = [launches.captured_launches(count, b)
+                             for count, b in zip(COUNTED, before, strict=True)]
+        self.launches = self.captured[0]
 
     def _step(self) -> None:
-        new, _loss = train_step(self.static, self.buffers, self.data, self.seed)
-        for dst, src in zip(tree_leaves(self.buffers), tree_leaves(new), strict=True):
-            dst.copy_(src)
+        train_step(self.static, self.buffers, self.data, self.seed)
 
     def replay(self, n: int = 1) -> None:
         """Run ``n`` more steps. Traced, the span carries the replays and,
@@ -394,7 +417,8 @@ class CapturedStep:
                     self._step()
                 else:
                     self.graph.replay()
-            svgp_proj.count_replays(self.launches, n)
+            for count, one in zip(COUNTED, self.captured, strict=True):
+                launches.count_replays(count, one, n)
             if sp.on:
                 sp.set(replays=n)
                 if events is not None:
@@ -403,7 +427,7 @@ class CapturedStep:
 
     def state(self) -> PSVGPState:
         """A fresh copy of the state (counters still device tensors)."""
-        return tree_map(torch.clone, self.buffers)
+        return PSVGPState(*tree_map(torch.clone, self.buffers))
 
 
 def params_from_numpy(arrays: dict, prefix: str, device) -> svgp.SVGPParams:

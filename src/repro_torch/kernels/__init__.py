@@ -1,4 +1,5 @@
 """The port's kernels: hand-written CUDA C++ (``csrc/``), built at first use
 by ``build.py``, wrapped in ``predict.py``, ``svgp_proj.py`` and ``rbf.py``,
 dispatched by ``ops.py``, each beside its plain PyTorch version in
-``ref.py``."""
+``ref.py``; and the Adam update (``adam.py``), dispatched by
+``optim/adam.py`` beside its plain formula."""

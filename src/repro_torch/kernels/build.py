@@ -31,6 +31,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_L = ctypes.c_longlong
 # name -> argtypes of every C entry point the library exports
 SIGNATURES = {
     # hx, z, log_l, log_var, w, u, c, mean, fvar, P, S, Q, m, d, device, stream
@@ -39,6 +41,9 @@ SIGNATURES = {
     "psvgp_svgp_projection": [_P] * 8 + [_I] * 5 + [_P],
     # x, z, log_l, log_var, knm, P, B, m, d, device, stream
     "psvgp_rbf_cross_cov": [_P] * 5 + [_I] * 5 + [_P],
+    # ptrs, sizes, leaves, b1, 1 - b1, b2, 1 - b2, lr, eps, step_in, step_out, step_host,
+    # device, stream
+    "psvgp_adam_update": [_P, _P, _I] + [_F] * 6 + [_P, _P, _L, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -111,12 +116,14 @@ def build() -> Path:
     return lib
 
 
-def bind(lib: Path) -> ctypes.CDLL:
-    """Load a built library and declare every C entry's signature."""
+def bind(lib: Path, names=tuple(SIGNATURES)) -> ctypes.CDLL:
+    """Load a built library and declare the signature of each C entry in
+    ``names`` (every entry unless told otherwise); an entry the library
+    lacks raises here."""
     handle = ctypes.CDLL(str(lib))
-    for name, argtypes in SIGNATURES.items():
+    for name in names:
         fn = getattr(handle, name)
-        fn.argtypes = argtypes
+        fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
     return handle
 

@@ -37,22 +37,6 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def captured_launches(before: dict) -> dict:
-    """After a CUDA graph capture that began with :data:`LAUNCHES` at
-    ``before``: the wrapper's calls during the capture launched nothing
-    yet, so restore the counts and return the launches one replay makes."""
-    captured = {name: LAUNCHES[name] - before[name] for name in LAUNCHES}
-    LAUNCHES.update(before)
-    return captured
-
-
-def count_replays(captured: dict, replays: int) -> None:
-    """Count the launches of ``replays`` replays of a graph whose capture
-    returned ``captured`` (:func:`captured_launches`)."""
-    for name, n in captured.items():
-        LAUNCHES[name] += n * replays
-
-
 def check_problem(
     x, z, log_lengthscale, log_variance, max_m: int = MAX_M
 ) -> tuple[torch.device, int, int, int, int]:

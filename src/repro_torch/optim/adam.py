@@ -15,7 +15,9 @@ integer or an int64 tensor of shape () on the params' device (what a CUDA
 graph of the training step advances in place); either way the update
 reads nothing back from the device, and the two give the same bits. The
 state is a pytree shaped like the params, so it carries the P cell axis
-with them.
+with them. On CUDA :func:`adam_update` is ONE launch of the Adam kernel
+(``kernels/adam.py``) over every leaf, bitwise the plain formula
+(:func:`plain_adam_update`), which every other device runs.
 :func:`adamw_update` adds JAX's decoupled decay on every leaf, and
 :func:`clip_by_global_norm` scales by a device scalar (no host sync).
 """
@@ -25,6 +27,8 @@ from collections.abc import Callable
 from typing import Any, NamedTuple
 
 import torch
+
+from repro_torch.kernels import adam as adam_kernel
 
 PyTree = Any
 
@@ -71,8 +75,48 @@ def adam_update(
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-8,
+    *,
+    out: tuple | None = None,
 ) -> tuple[PyTree, AdamState]:
-    """One Adam step minimizing the loss whose gradient is ``grads``."""
+    """One Adam step minimizing the loss whose gradient is ``grads``:
+    (new params, new state). ``out``, a (params, AdamState) tree shaped
+    like the return with an int64 () step counter, receives the update in
+    place and is returned; it may be the input itself, but is written only
+    once nothing reads the inputs any more. Without it the inputs are left
+    as they are and the result is new tensors.
+
+    A CUDA tree is ONE launch of the kernel (``kernels/adam.py``), bitwise
+    the plain formula; any other tree runs the plain formula
+    (:func:`plain_adam_update`). The tensors' device decides, as in
+    ``kernels/ops.py``."""
+    if tree_leaves(params)[0].device.type != "cuda":
+        return plain_adam_update(params, grads, state, lr, b1, b2, eps, out=out)
+    new = out if out is not None else _uninitialized_result(params, state)
+    step_out = new[1].step
+    if out is None and not isinstance(step_out, torch.Tensor):
+        step_out = None  # a host counter, advanced in ``new`` already: the kernel writes none
+    adam_kernel.adam_update(
+        *(tree_leaves(t) for t in (params, grads, state.mu, state.nu, new[0], new[1].mu,
+                                   new[1].nu)),
+        state.step, step_out, lr=lr, b1=b1, b2=b2, eps=eps)
+    return new
+
+
+def _uninitialized_result(params, state: AdamState) -> tuple:
+    """Tensors shaped like :func:`adam_update`'s result for the kernel to
+    fill; a host counter already advanced."""
+    def like(t):
+        return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+
+    step = torch.empty_like(state.step) if isinstance(state.step, torch.Tensor) else state.step + 1
+    return (tree_map(like, params),
+            AdamState(step, tree_map(like, state.mu), tree_map(like, state.nu)))
+
+
+def plain_adam_update(params, grads, state, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, *,
+                      out=None) -> tuple:
+    """:func:`adam_update` as plain PyTorch on any device: the CPU lane,
+    and the reference the kernel is held to bitwise on the card."""
     step = state.step + 1
     mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
     nu = tree_map(lambda v, g: b2 * v + (1 - b2) * (g * g), state.nu, grads)
@@ -86,7 +130,11 @@ def adam_update(
     def upd(p, m, v):
         return p - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
 
-    return tree_map(upd, params, mu, nu), AdamState(step=step, mu=mu, nu=nu)
+    new = (tree_map(upd, params, mu, nu), AdamState(step=step, mu=mu, nu=nu))
+    if out is None:
+        return new
+    tree_map(lambda dst, src: dst.copy_(torch.as_tensor(src)), out, new)
+    return out
 
 
 def adamw_update(
