@@ -1,6 +1,8 @@
 """Frozen counts of the work: the card's peaks, the projection kernel's
 least time and the FLOPs of one SGD step. They follow from the shapes
-alone, whatever implements the step.
+alone, whatever implements the step. An entry reports its step's FLOPs and
+the precision of the peak they are held to (``PEAK_FLOP_PER_S``) in its
+``shape``; ``metrics/step_mfu.py`` reads them.
 
 ``projection_bound_s`` is a copy of ``chip_smoke.py:projection_bound``
 (the projection branch) and ``_bound``; ``step_flops`` is the benchmark's
@@ -10,7 +12,10 @@ from __future__ import annotations
 
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores
+PEAK_BF16_FLOP_PER_S = 989.4e12  # BF16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # HBM3
+
+PEAK_FLOP_PER_S = {"fp32": PEAK_FP32_FLOP_PER_S, "bf16": PEAK_BF16_FLOP_PER_S}
 
 ADAM_FLOPS_PER_ELEMENT = 12  # two moments (3 + 4), the bias-corrected update (5)
 

@@ -12,8 +12,10 @@ iters, use_scan=True)`` and a synchronize. After the window the plain
 reference follows the check's steps from the raw field.
 
 With ``--trace 1`` the harness wraps ``psvgp.CapturedStep.replay`` with
-CUDA events (the replays' device time of each fit), and profiles the last
-replays of one more fit.
+CUDA events (the replays' device time of each fit, a unit's ``device_ms``
+over its ``device_steps``), and profiles the last replays of one more fit.
+The run's ``shape`` reports the step's FLOPs (``counts.step_flops``) and the
+FP32 peak they are held to.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import time
 
 import torch
 
-from bench import compare, field, profiles
+from bench import compare, counts, field, profiles
 from bench.seeds import sub_seed
 
 PROFILED_ITERS = 240  # the profiled fit's steps (at most a fit's); its last PROFILED_REPLAYS traced
@@ -61,6 +63,12 @@ class Timer:
 def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def step_shape(P: int, B: int, m: int, d: int) -> dict:
+    """The step's sizes, its FLOPs and the peak they are held to."""
+    return {"P": P, "B": B, "m": m, "d": d, "step_flops": counts.step_flops(P, B, m, d),
+            "peak": "fp32"}
 
 
 def leaves(params) -> dict:
@@ -123,7 +131,7 @@ class Run:
         lap("partition_and_build")
         self.iters = int(cfg["iters"])
         P, _, d = self.data.x.shape
-        self.shape = {"P": P, "B": self.pcfg.batch_size, "m": self.pcfg.svgp.num_inducing, "d": d}
+        self.shape = step_shape(P, self.pcfg.batch_size, self.pcfg.svgp.num_inducing, d)
         self.steps = int(limits["steps"])
         self.check_seeds = (sub_seed(seed, "check:init"), sub_seed(seed, "check:draws"))
         self.program = self.drive(*self.check_seeds)
@@ -150,8 +158,8 @@ class Run:
     # ------------------------------------------------------------ the window
 
     def unit(self, k: int) -> dict:
-        """One whole fit; {"steps", "wall_s"} and, when traced, the replays'
-        device ms and count."""
+        """One whole fit; {"steps", "wall_s"} and, when traced, its replays'
+        device ms and count (``device_ms``, ``device_steps``)."""
         psvgp, fit_seed = self.psvgp, sub_seed(self.seed, f"fit:{k}")
         self.pending = []
         t0 = time.perf_counter()
@@ -160,12 +168,12 @@ class Run:
         sync(self.device)
         record = {"steps": self.iters, "wall_s": time.perf_counter() - t0}
         if self.pending:
-            record["replay_ms"] = sum(t.ms() for t, _ in self.pending)
-            record["replays"] = sum(n for _, n in self.pending)
+            record["device_ms"] = sum(t.ms() for t, _ in self.pending)
+            record["device_steps"] = sum(n for _, n in self.pending)
         self.finals.append(state.params)
         return record
 
-    def timed_replays(self):
+    def timed_units(self):
         """Within it every replay call of the window is timed."""
 
         def hook(replay, captured, n):

@@ -9,9 +9,14 @@ a number, or None where it finds nothing to read).
 
 An entry module exports ``setup(cfg, mix, limits, seed, device)``, which
 returns a run with ``unit(k)`` (one unit of the window's work, returning
-{"steps", "wall_s", ...}), ``timed_replays()`` (a context for traced
-units), ``profile()``, ``failed_units()``, ``release()``, ``check()``
-(-> {number: value}) and ``shape``.
+{"steps", "wall_s", ...}), ``timed_units()`` (a context for traced units,
+within which a unit also returns ``device_ms``, its steps' time by CUDA
+events, over ``device_steps`` of them), ``profile()`` (a record of
+``profiles.reduce``, or None), ``failed_units()``, ``release()``,
+``check()`` (-> {number: value}) and ``shape`` (a dict: the step's sizes,
+and ``step_flops`` with ``peak``, a key of ``counts.PEAK_FLOP_PER_S``).
+Nothing of it is read by key of one model family, so a cell of another
+family comes in by new files alone.
 """
 from __future__ import annotations
 
@@ -92,7 +97,7 @@ def run(root: str, bench_dir: str, cell: str, seed: int, seconds: float, trace: 
         + ", ".join(f"{k} {v:.3f} s" for k, v in getattr(work, "setup_phases", {}).items()))
 
     units = []
-    with work.timed_replays() if trace else contextlib.nullcontext():
+    with work.timed_units() if trace else contextlib.nullcontext():
         t0 = time.perf_counter()
         while True:
             units.append(work.unit(len(units)))

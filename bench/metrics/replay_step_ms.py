@@ -1,8 +1,9 @@
-"""replay_step_ms: device ms of one replayed step of the graph lane, by
-CUDA events around each fit's run of replays, over every fit of the window."""
+"""replay_step_ms: device ms of one step by CUDA events around the units'
+timed steps (``device_ms`` over ``device_steps``; on the graph lane each
+fit's run of replays), over every unit of the window."""
 
 
 def read(records: dict) -> float | None:
-    timed = [u for u in records["units"] if u.get("replays")]
-    replays = sum(u["replays"] for u in timed)
-    return sum(u["replay_ms"] for u in timed) / replays if replays else None
+    timed = [u for u in records["units"] if u.get("device_steps")]
+    steps = sum(u["device_steps"] for u in timed)
+    return sum(u["device_ms"] for u in timed) / steps if steps else None

@@ -6,7 +6,7 @@ read as a traced run of a cell would read them; adds no cell.
 
 Sets the cell's entry up as a run does (the check's drive included), then:
 
-1. window: ``--fits`` whole fits under the entry's ``timed_replays()`` with
+1. window: ``--fits`` whole fits under the entry's ``timed_units()`` with
    the tracer switched on, each fit's spans drained into its unit's
    ``trace``, and the span readers of ``bench/metrics/`` (``SPAN_METRICS``)
    read over them; for each fit, its ``psvgp.replay`` device ms against the
@@ -45,14 +45,14 @@ GAP_US = 100.0
 
 def traced_run(entry, trace):
     """The entry's run class, with the tracer switched on inside
-    ``timed_replays()`` and each unit's spans drained into its record."""
+    ``timed_units()`` and each unit's spans drained into its record."""
 
     class TracedRun(entry.Run):
         @contextlib.contextmanager
-        def timed_replays(self):
+        def timed_units(self):
             trace.set_enabled(True)
             try:
-                with super().timed_replays():
+                with super().timed_units():
                     yield
             finally:
                 trace.set_enabled(False)
@@ -92,9 +92,9 @@ def per_fit(units: list[dict]) -> list[dict]:
                 row[f"{name[6:]}.{key}"] = sum(got)
         host = row["init_ms"] + row["fit_ms"]
         row["covered"] = sum(spans.ms(u, n) for n in INNER) / host if host else None
-        if u.get("replay_ms") and row.get("replay.device_ms"):
-            row["replay_ms_outside"] = u["replay_ms"]
-            row["replay_agree"] = row["replay.device_ms"] / u["replay_ms"]
+        if u.get("device_ms") and row.get("replay.device_ms"):
+            row["replay_ms_outside"] = u["device_ms"]
+            row["replay_agree"] = row["replay.device_ms"] / u["device_ms"]
             row["replay_step_ms"] = row["replay.device_ms"] / row["replay.replays"]
         row["dropped"] = u["trace"]["dropped"]
         row.update({f"capture.{k}_ms": v for k, v in u.get("calls", {}).items()})
@@ -136,7 +136,7 @@ def window(run, fits: int, first: int = 0) -> list[dict]:
     from bench import spans
 
     units = []
-    with run.timed_replays():
+    with run.timed_units():
         for k in range(fits):
             log: list = []
             with timed_calls(torch.cuda, ("empty_cache", "synchronize"), log):

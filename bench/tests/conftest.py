@@ -14,6 +14,7 @@ for path in (os.path.join(ROOT, "src"), ROOT):
         sys.path.insert(0, path)
 
 TINY_CELL = "tiny.tiny_fit"
+STUB_CELL = "stub_lm.stub_train"
 
 
 @pytest.fixture(autouse=True)
@@ -67,14 +68,40 @@ def tiny_copy(dst: str, *, limits_of: str = "psvgp_e3sm.ne30_fit") -> str:
     return dst
 
 
-def run_tiny(root: str, seed: int = 2**31 + 11, trace: bool = False):
-    """One run of the tiny cell on the CPU, the harness's look for a chip
-    skipped."""
+def add_stub_family(root: str) -> str:
+    """Add to the copy under ``root`` a cell of another model family,
+    ``stub_lm.stub_train`` (``stub_entry.py`` as its entry), by new files
+    and manifest entries alone; returns the cell's name."""
+    shutil.copy(os.path.join(os.path.dirname(os.path.abspath(__file__)), "stub_entry.py"),
+                os.path.join(root, "bench", "entries", "stub_lm.py"))
+    files = {"bench/configs/stub_lm.json": {"name": "stub_lm", "vocab_size": 64, "hidden_size": 16,
+                                            "intermediate_size": 32, "lr": 0.1, "peak": "bf16",
+                                            "allow_tf32": False},
+             "bench/traffic/stub_train.json": {"entry": "stub_lm", "batch": 4, "seq_len": 8,
+                                               "steps_per_unit": 5},
+             f"bench/limits/{STUB_CELL}.json": {"steps": 3, "limits": {"loss_gap": 1e-5}}}
+    for rel, body in files.items():
+        with open(os.path.join(root, rel), "w", encoding="utf-8") as f:
+            json.dump(body, f)
+    with open(os.path.join(root, "BENCHMARK.json"), encoding="utf-8") as f:
+        manifest = json.load(f)
+    manifest["configs"].append({"name": "stub_lm", "source": "tests", "reduced": [],
+                                "file": "bench/configs/stub_lm.json", "why": "another family"})
+    manifest["workloads"].append({"name": STUB_CELL, "config": "stub_lm", "traffic": "stub_train",
+                                  "chips": 1, "why": "another family on the CPU"})
+    with open(os.path.join(root, "BENCHMARK.json"), "w", encoding="utf-8") as f:
+        json.dump(manifest, f)
+    return STUB_CELL
+
+
+def run_tiny(root: str, seed: int = 2**31 + 11, trace: bool = False, cell: str = TINY_CELL):
+    """One run of the tiny cell (or ``cell``) on the CPU, the harness's look
+    for a chip skipped."""
     import time
 
     import torch
 
     from bench import harness
 
-    return harness.run(root, os.path.join(root, "bench"), TINY_CELL, seed, 0.01, trace,
+    return harness.run(root, os.path.join(root, "bench"), cell, seed, 0.01, trace,
                        torch.device("cpu"), time.perf_counter())

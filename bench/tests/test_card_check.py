@@ -11,7 +11,8 @@ from conftest import ROOT
 from bench import compare, harness
 from bench.reference import psvgp as ref
 
-CELLS = ("psvgp_e3sm.ne30_fit", "psvgp_e3sm_m20.ne30_fit", "psvgp_e3sm.ne120_fit")
+CELLS = ("psvgp_e3sm.ne30_fit", "psvgp_e3sm_m20.ne30_fit", "psvgp_e3sm.ne120_fit",
+         "psvgp_e3sm_m20.ne120_fit")
 
 
 @pytest.mark.cuda

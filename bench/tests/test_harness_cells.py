@@ -12,7 +12,7 @@ import subprocess
 import sys
 
 import pytest
-from conftest import ROOT, TINY_CELL, run_tiny, tiny_copy
+from conftest import ROOT, TINY_CELL, add_stub_family, run_tiny, tiny_copy
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -34,8 +34,10 @@ def digest(tree: str) -> dict:
 
 def test_a_new_config_mix_cell_and_metric_need_no_edit(tmp_path):
     """A throwaway configuration, mix, limits, cell and per-layer metric,
-    added by new files and manifest entries alone, are found by name."""
+    added by new files and manifest entries alone, are found by name; so is
+    a cell of another model family, with an entry of its own."""
     root = tiny_copy(str(tmp_path))
+    stub = add_stub_family(root)
     reader = os.path.join(root, "bench", "metrics", "fits_per_window.py")
     with open(reader, "w", encoding="utf-8") as f:
         f.write('def read(records):\n    return float(records["window"]["units"])\n')
@@ -56,6 +58,13 @@ def test_a_new_config_mix_cell_and_metric_need_no_edit(tmp_path):
     assert {"replay_step_ms", "capture_ms"} <= set(traced["metrics"])
     assert list(plain) == ["correct", "attempted", "failed", "metrics", "device", "fits", "check"]
     assert list(traced)[-1] == "check"
+    other = {trace: run_tiny(root, trace=trace, cell=stub) for trace in (False, True)}
+    assert all(r["correct"] and r["failed"] == 0 for r in other.values()), other
+    assert set(other[False]["metrics"]) == {"fit_step_ms", "setup_s"}
+    # no CUDA events, device or card here: the host-timed steps are read,
+    # the trace's device share and step_mfu are not
+    assert set(other[True]["metrics"]) == {"replay_step_ms", "capture_ms"}
+    assert other[True]["device"]["busy_s"] == 0.0
     copied = digest(os.path.join(root, "bench"))
     assert all(copied[k] == v for k, v in before.items())
 
@@ -95,6 +104,7 @@ def test_manifest_keeps_the_contract():
     for x in m["per_layer"]:
         assert set(x) <= {"name", "unit", "better", "source", "layer", "moves", "workloads"}
         assert x["moves"] in e2e and "\n" not in x["layer"]
+        assert set(x.get("workloads", [])) <= {w["name"] for w in m["workloads"]}
         if x["name"].endswith("_roofline") or "mfu" in x["name"]:
             assert x["unit"] == "%"
     assert len(json.dumps(m)) <= 64 * 1024

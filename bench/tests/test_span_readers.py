@@ -61,7 +61,7 @@ def test_each_reader_on_hand_made_spans():
                                   "fit_device_allocs"])
 def test_readers_find_nothing_without_spans(name):
     """A program without the tracer leaves no ``trace`` in its units."""
-    units = [{"steps": 2500, "wall_s": 2.4, "replay_ms": 2200.0, "replays": 2497}] * 3
+    units = [{"steps": 2500, "wall_s": 2.4, "device_ms": 2200.0, "device_steps": 2497}] * 3
     assert read(name, units) is None
     assert read(name, [dict(u, trace={"spans": [], "dropped": 0}) for u in units]) is None
 
