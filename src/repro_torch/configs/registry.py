@@ -1,7 +1,8 @@
 """Architecture registry: ``get(arch_id)`` -> (full config, smoke config).
 
 Copy of ``repro.configs.registry`` over the port's copies of the ten
-architecture files; the port builds, serves and trains all ten.
+architecture files; the port builds, serves and trains all ten, and the
+port-only ones of ``PORT_ARCH_IDS``.
 
 Every assigned architecture is a module exposing ``FULL`` (the exact
 published configuration, citation included) and ``smoke()`` (a reduced
@@ -27,6 +28,14 @@ ARCH_IDS: list[str] = [
     "qwen3_moe_30b_a3b",
     "h2o_danube_3_4b",
 ]
+
+# Port-only architectures (the JAX package has none of them), which get()
+# and get_smoke() resolve as they do ARCH_IDS.
+PORT_ARCH_IDS: list[str] = [
+    "deepseek_v2_lite",
+    "deepseek_v2_lite_ep8",  # one chip of its 8-way expert-parallel deployment
+]
+
 
 # external (dashed) ids <-> module names
 def canon(arch_id: str) -> str:

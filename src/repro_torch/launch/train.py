@@ -11,7 +11,9 @@ steps.
       --steps 50 --batch 8 --seq 128 [--smoke] [--device cpu]
 
 An encoder-decoder's batches carry stub ``"frames"`` and a VLM's stub
-``"patches"``, drawn as JAX's CLI draws them. ``--ckpt-dir`` resumes from
+``"patches"``, drawn as JAX's CLI draws them. The port-only architectures
+(``configs.PORT_ARCH_IDS``, e.g. ``--arch deepseek-v2-lite-ep8``) clip and
+update in place (``make_train_step(in_place=True)``). ``--ckpt-dir`` resumes from
 the latest checkpoint there (either package's) and continues the token
 and stub streams and the step count where the saved state stopped; JAX's
 CLI restarts them at 0. The mesh is JAX's CLI's: ``make_host_mesh()``
@@ -81,7 +83,7 @@ def main() -> None:
     import torch
 
     from repro_torch.checkpoint import load_train_state, save_train_state
-    from repro_torch.configs import get, get_smoke
+    from repro_torch.configs import PORT_ARCH_IDS, canon, get, get_smoke
     from repro_torch.data.tokens import synthetic_token_batches
     from repro_torch.device import resolve_device
     from repro_torch.launch.mesh import make_host_mesh
@@ -106,7 +108,9 @@ def main() -> None:
     print(f"sharding: {sum(any(e is not None for e in s) for s in specs)} of {len(specs)} "
           f"parameter leaves sharded on mesh {mesh.label()}")
 
-    step_fn = make_train_step(cfg, learning_rate=args.lr)
+    # the port-only configs are sized to the card: the step updates in place
+    step_fn = make_train_step(cfg, learning_rate=args.lr,
+                              in_place=canon(args.arch) in PORT_ARCH_IDS)
     start = int(state.step)
     data = synthetic_token_batches(cfg.vocab_size, args.batch, args.seq, seed=args.seed,
                                    num_batches=args.steps, start_row=start)

@@ -12,6 +12,10 @@ prefill expand the latents to per-head keys and values (query-chunked
 under ``attn_q_chunk``, each chunk recomputed in the backward); decode is
 ABSORBED, attending against the compressed latents ``c_kv`` (B, S, r) and
 the shared rope keys ``k_rope`` (B, S, dr) of the cache, written in place.
+DeepSeek-V2-Lite's settings (port-only, ``config.ScaledRopeModelConfig``):
+q by one product without LoRA (``q_lora_rank`` 0), YaRN's frequencies and
+softmax scale, the rope dims read as adjacent pairs, and at train time
+the core as ``F.scaled_dot_product_attention`` (span ``mla.attention``).
 
 Cache convention (serve path): a dict per attention block,
   {"k": (B, S_cache, KV, hd), "v": (B, S_cache, KV, hd)}
@@ -27,16 +31,20 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import trace
 from repro_torch.models.common import (
     Params,
     apply_rope,
     causal_mask,
+    deinterleave_pairs,
     dense_init,
     rms_norm,
     rope_angles,
     window_mask,
+    yarn_mscale,
 )
 from repro_torch.models.config import MLAConfig, ModelConfig
 from repro_torch.sharding.dtensor import head_reshape, heads_local, is_dtensor, linear, write_slot
@@ -246,14 +254,22 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, seq: int, window: int, dtype,
 
 
 def init_mla_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple[int, ...] = ()) -> Params:
+    """MLA's leaves; with ``q_lora_rank`` 0 (DeepSeek-V2-Lite) q is one
+    product ``w_q`` (D, H * (dn + dr)), with no q norm."""
     a: MLAConfig = cfg.mla
     D, H = cfg.d_model, cfg.num_heads
     qd = a.qk_nope_head_dim + a.qk_rope_head_dim
     ones = {"dtype": torch.float32, "device": gen.device}
+    if a.q_lora_rank:
+        q = {
+            "w_dq": dense_init(gen, (D, a.q_lora_rank), lead=lead),
+            "q_norm": torch.ones(lead + (a.q_lora_rank,), **ones),
+            "w_uq": dense_init(gen, (a.q_lora_rank, H * qd), lead=lead),
+        }
+    else:
+        q = {"w_q": dense_init(gen, (D, H * qd), lead=lead)}
     return {
-        "w_dq": dense_init(gen, (D, a.q_lora_rank), lead=lead),
-        "q_norm": torch.ones(lead + (a.q_lora_rank,), **ones),
-        "w_uq": dense_init(gen, (a.q_lora_rank, H * qd), lead=lead),
+        **q,
         "w_dkv": dense_init(gen, (D, a.kv_lora_rank), lead=lead),
         "kv_norm": torch.ones(lead + (a.kv_lora_rank,), **ones),
         "w_kr": dense_init(gen, (D, a.qk_rope_head_dim), lead=lead),
@@ -280,18 +296,37 @@ def mla_forward(
     dn, dr, dv, r = a.qk_nope_head_dim, a.qk_rope_head_dim, a.v_head_dim, a.kv_lora_rank
     dt = x.dtype
     dev = x.device
-    # float32 1 / sqrt(dn + dr), both ops rounded in float32 as JAX's
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(dn + dr)))
+    scale = mla_softmax_scale(cfg)
 
-    cq = rms_norm(linear(x, p["w_dq"].to(dt)), p["q_norm"], cfg.norm_eps)
-    q = head_reshape(linear(cq, p["w_uq"].to(dt)), (B, S, H, dn + dr), H)
+    if a.q_lora_rank:
+        cq = rms_norm(linear(x, p["w_dq"].to(dt)), p["q_norm"], cfg.norm_eps)
+        q = linear(cq, p["w_uq"].to(dt))
+    else:
+        q = linear(x, p["w_q"].to(dt))
+    q = head_reshape(q, (B, S, H, dn + dr), H)
     qn, qr = q[..., :dn], q[..., dn:]
-    cos, sin = rope_angles(positions, dr, cfg.rope_theta)
+    cos, sin = rope_angles(positions, dr, cfg.rope_theta, cfg.rope_scaling)
+    if cfg.rope_interleave:
+        qr = deinterleave_pairs(qr)
     qr = apply_rope(qr, cos, sin)
 
     c_kv = rms_norm(linear(x, p["w_dkv"].to(dt)), p["kv_norm"], cfg.norm_eps)  # (B, S, r)
     kr = linear(x, p["w_kr"].to(dt)).reshape(B, S, 1, dr)
+    if cfg.rope_interleave:
+        kr = deinterleave_pairs(kr)
     kr = apply_rope(kr, cos, sin)[:, :, 0]  # (B, S, dr), shared across heads
+
+    if cache is None and cfg.attn_sdpa and not is_dtensor(x):
+        # train: one fused causal attention over the expanded latents
+        kn = linear(c_kv, p["w_uk"].to(dt)).reshape(B, S, H, dn)
+        v = linear(c_kv, p["w_uv"].to(dt)).reshape(B, S, H, dv)
+        with trace.span("mla.attention", events=x.is_cuda):
+            qh = torch.cat([qn, qr], dim=-1).transpose(1, 2)  # (B, H, S, dn + dr)
+            kh = torch.cat([kn, kr[:, :, None].expand(B, S, H, dr)], dim=-1).transpose(1, 2)
+            out = F.scaled_dot_product_attention(qh, kh, v.transpose(1, 2), is_causal=True,
+                                                 scale=scale)
+            out = out.transpose(1, 2).reshape(B, S, H * dv)
+        return linear(out, p["wo"].to(dt)), cache
 
     if cache is None or S > 1:
         # train / prefill: expand the latents
@@ -348,6 +383,18 @@ def mla_forward(
         out = head_reshape(torch.einsum("bshr,rhd->bshd", o_lat, w_uv), (B, S, H * dv), H, dim=2)
 
     return linear(out, p["wo"].to(dt)), cache
+
+
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """1 / sqrt(dn + dr), both ops rounded in float32 as JAX's; with YaRN
+    (``cfg.rope_scaling`` and its ``mscale_all_dim``) times mscale^2, as
+    DeepSeek-V2's published attention scales its softmax."""
+    a: MLAConfig = cfg.mla
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(a.qk_nope_head_dim + a.qk_rope_head_dim)))
+    y = cfg.rope_scaling
+    if y is not None and y.mscale_all_dim:
+        scale *= yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return scale
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, seq: int, dtype, device=None,

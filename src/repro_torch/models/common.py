@@ -67,12 +67,60 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
-def rope_angles(positions: torch.Tensor, dim: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """positions (...,) -> cos/sin tables (..., dim/2)."""
+def rope_angles(positions: torch.Tensor, dim: int, theta: float,
+                scaling=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) -> cos/sin tables (..., dim/2). ``scaling``, a
+    ``config.YaRNConfig``, takes YaRN's frequencies and cos/sin factor
+    (:func:`yarn_inv_freq`, :func:`yarn_mscale`)."""
     exps = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
     freqs = 1.0 / (theta ** exps)
+    if scaling is not None:
+        freqs = yarn_inv_freq(freqs, dim, theta, scaling)
     ang = positions.to(torch.float32)[..., None] * freqs  # (..., dim/2)
-    return torch.cos(ang), torch.sin(ang)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if scaling is not None:
+        factor = yarn_mscale(scaling.factor, scaling.mscale) / yarn_mscale(
+            scaling.factor, scaling.mscale_all_dim)
+        if factor != 1.0:
+            cos, sin = cos * factor, sin * factor
+    return cos, sin
+
+
+def yarn_mscale(scale: float, mscale: float) -> float:
+    """YaRN's attention factor 0.1 m ln(s) + 1 (1 where s <= 1)."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_correction_range(dim: int, theta: float, scaling) -> tuple[int, int]:
+    """(low, high): the dims whose wavelength turns ``beta_fast`` and
+    ``beta_slow`` times over the original context, c(r) = d ln(L / (2 pi
+    r)) / (2 ln theta), floored and ceiled and clipped to [0, d - 1]."""
+    def c(r):
+        return dim * math.log(scaling.original_max_position / (r * 2 * math.pi)) / (
+            2 * math.log(theta))
+
+    return max(math.floor(c(scaling.beta_fast)), 0), min(math.ceil(c(scaling.beta_slow)), dim - 1)
+
+
+def yarn_inv_freq(freqs: torch.Tensor, dim: int, theta: float, scaling) -> torch.Tensor:
+    """YaRN's blend of the extrapolated frequencies ``freqs`` (theta^-2i/d)
+    and the interpolated ones (``freqs / factor``): i below ``low`` keeps
+    its own, i above ``high`` is interpolated, a linear ramp between, as
+    DeepSeek-V2's published ``DeepseekV2YarnRotaryEmbedding`` computes it."""
+    low, high = yarn_correction_range(dim, theta, scaling)
+    if low == high:
+        high += 0.001
+    i = torch.arange(dim // 2, dtype=torch.float32, device=freqs.device)
+    extra = 1.0 - torch.clamp((i - low) / (high - low), 0, 1)
+    return (freqs / scaling.factor) * (1 - extra) + freqs * extra
+
+
+def deinterleave_pairs(x: torch.Tensor) -> torch.Tensor:
+    """(..., d) with rotary pairs adjacent (x0, x1), (x2, x3), ... -> the
+    rotate-half layout (x0, x2, ..., x1, x3, ...), as DeepSeek-V2's
+    published ``apply_rotary_pos_emb`` reads q and k."""
+    d = x.shape[-1]
+    return x.reshape(x.shape[:-1] + (d // 2, 2)).transpose(-1, -2).reshape(x.shape)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

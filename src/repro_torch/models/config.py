@@ -41,6 +41,56 @@ class MoEConfig:
         if self.first_layer_dense and self.dense_d_ff <= 0:
             raise ValueError("first_layer_dense requires dense_d_ff > 0")
 
+    # The port-only settings of :class:`HeldMoEConfig`, at the behaviour
+    # every JAX config has. Class attributes, not fields, so that a
+    # config's ``dataclasses.asdict`` stays JAX's field for field.
+    norm_topk_prob = True
+    routed_scaling_factor = 1.0
+    seq_aux = False
+    router_fp32 = False
+    dropless = False
+    experts_first = 0
+    experts_held = 0
+
+    @property
+    def held(self) -> int:
+        """How many experts this process holds (all of them unless
+        ``experts_held`` says fewer)."""
+        return self.experts_held or self.num_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class HeldMoEConfig(MoEConfig):
+    """DeepSeek-V2's expert layer, as one chip of an expert-parallel
+    deployment holds it (port-only; JAX has no such config).
+
+    ``norm_topk_prob``: renormalise the top-k gates to sum to 1 (False:
+    the raw softmax probabilities, times ``routed_scaling_factor``).
+    ``seq_aux``: the balance loss sequence by sequence, DeepSeek-V2's
+    ``seq_aux`` (``moe.route``), in place of the Switch form over the
+    batch. ``router_fp32``: the router's product in float32, as the
+    published code computes it. ``dropless``: every assignment to a held
+    expert is computed (no capacity). ``experts_first``/``experts_held``:
+    this process holds experts [first, first + held) of ``num_experts``;
+    the router still scores all of them."""
+
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    seq_aux: bool = False
+    router_fp32: bool = False
+    dropless: bool = False
+    experts_first: int = 0
+    experts_held: int = 0
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if self.experts_held < 0 or self.experts_first < 0 or \
+                self.experts_first + self.held > self.num_experts:
+            raise ValueError(f"held experts [{self.experts_first}, "
+                             f"{self.experts_first + self.held}) outside [0, {self.num_experts})")
+        if self.held != self.num_experts and not self.dropless:
+            raise ValueError("a share of the experts is computed by the dropless path only")
+
 
 @dataclasses.dataclass(frozen=True)
 class MLAConfig:
@@ -57,6 +107,23 @@ class MLAConfig:
             raise ValueError("q_lora_rank >= 0 and kv_lora_rank > 0 required")
         if min(self.qk_nope_head_dim, self.qk_rope_head_dim, self.v_head_dim) <= 0:
             raise ValueError("MLA head dims must be positive")
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRNConfig:
+    """YaRN's RoPE scaling (Peng et al. 2023, arXiv:2309.00071), as
+    DeepSeek-V2's ``rope_scaling`` states it (``type`` "yarn")."""
+
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+    def __post_init__(self) -> None:
+        if self.factor <= 0 or self.original_max_position <= 0:
+            raise ValueError("YaRN needs factor > 0 and original_max_position > 0")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,6 +245,12 @@ class ModelConfig:
             assert self.max_position > 0
         return self
 
+    # The port-only settings of :class:`ScaledRopeModelConfig`, at the
+    # behaviour every JAX config has (class attributes, not fields).
+    rope_scaling = None
+    rope_interleave = False
+    attn_sdpa = False
+
     def has_attention(self) -> bool:
         return any(b in ("attn", "local_attn", "mla") for b in self.block_pattern)
 
@@ -185,3 +258,27 @@ class ModelConfig:
         """True if no block attends to unbounded context (long_500k eligible
         natively — SSM/hybrid/SWA archs)."""
         return not any(b in ("attn", "mla") for b in self.block_pattern)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaledRopeModelConfig(ModelConfig):
+    """A model whose RoPE follows DeepSeek-V2 (port-only).
+
+    ``rope_scaling``: YaRN's frequencies and softmax scale
+    (``common.rope_angles``, ``attention.mla_softmax_scale``).
+    ``rope_interleave``: the rope dims of q and k are read as DeepSeek-V2's
+    published code reads them, adjacent pairs (``view(..., d/2,
+    2).transpose(-1, -2)``) before rotate-half. ``attn_sdpa``: MLA's
+    train-time attention core is ``torch.nn.functional.
+    scaled_dot_product_attention`` (causal, the explicit scale), so no
+    (S, S) logits are kept."""
+
+    rope_scaling: YaRNConfig | None = None
+    rope_interleave: bool = False
+    attn_sdpa: bool = False
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if (self.rope_scaling is not None or self.rope_interleave or self.attn_sdpa) and \
+                "mla" not in self.block_pattern:
+            raise ValueError("YaRN, interleaved rope pairs and the fused core are MLA's here")

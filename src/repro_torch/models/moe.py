@@ -32,6 +32,11 @@ shared experts follow it. In the backward the all-reduce passes the
 gradient through, and the gradients of the dispatched tokens and of the
 gates are summed over the group, so every rank gets the whole gradient of
 x and the router, and its own experts' gradients.
+
+DeepSeek-V2's expert layer (a ``config.HeldMoEConfig`` with ``dropless``,
+port-only) takes its own path, :func:`_moe_forward_held`: the gates as the
+configuration states them (``route``), the held experts' share computed
+dropless on contiguous per-expert segments, the shared experts once.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.models.common import Params, dense_init
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.sharding.dtensor import is_dtensor, linear, moe_forward_sharded
@@ -70,13 +76,16 @@ def routing_log():
 
 
 def init_moe_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple[int, ...] = ()) -> Params:
+    """The router scores all ``num_experts``; the expert leaves hold the
+    ``moe.held`` experts this process computes (all of them but under a
+    ``HeldMoEConfig`` that holds a share)."""
     m: MoEConfig = cfg.moe
     D, E, Fx = cfg.d_model, m.num_experts, m.d_expert
     p = {
         "router": dense_init(gen, (D, E), lead=lead),
-        "w_gate": dense_init(gen, (E, D, Fx), in_axis=1, lead=lead),
-        "w_up": dense_init(gen, (E, D, Fx), in_axis=1, lead=lead),
-        "w_down": dense_init(gen, (E, Fx, D), in_axis=1, lead=lead),
+        "w_gate": dense_init(gen, (m.held, D, Fx), in_axis=1, lead=lead),
+        "w_up": dense_init(gen, (m.held, D, Fx), in_axis=1, lead=lead),
+        "w_down": dense_init(gen, (m.held, Fx, D), in_axis=1, lead=lead),
     }
     if m.num_shared > 0:
         sf = m.num_shared * Fx
@@ -88,17 +97,38 @@ def init_moe_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple[int, ...
     return p
 
 
-def route(p: Params, cfg: ModelConfig, xt: torch.Tensor):
+def route(p: Params, cfg: ModelConfig, xt: torch.Tensor, batch: int = 1):
     """xt (T, D) -> (probs fp32 (T, E), gates fp32 (T, K), expert ids (T, K)
-    int64, aux fp32 ())."""
+    int64, aux fp32 ()). ``batch``: the sequences xt's rows are, in order,
+    for the sequence-wise balance loss.
+
+    DeepSeek-V2's settings (``HeldMoEConfig``): ``router_fp32`` computes
+    the logits in float32; without ``norm_topk_prob`` the gates are the
+    top-k probabilities times ``routed_scaling_factor``; ``seq_aux`` takes
+    the balance loss sequence by sequence, mean_b sum_e f_be P_be with
+    f_be = count_be / (S K / E) and P_be the sequence's mean probability."""
     m: MoEConfig = cfg.moe
     E, K = m.num_experts, m.top_k
     T = xt.shape[0]
-    logits = (xt @ p["router"].to(xt.dtype)).to(torch.float32)
+    if m.router_fp32:
+        logits = xt.to(torch.float32) @ p["router"].to(torch.float32)
+    else:
+        logits = (xt @ p["router"].to(xt.dtype)).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     srt = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, expert_ids = srt.values[:, :K], srt.indices[:, :K]
-    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+    if m.norm_topk_prob:
+        gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+    elif m.routed_scaling_factor != 1.0:
+        gate_vals = gate_vals * m.routed_scaling_factor
+    if m.seq_aux:
+        S = T // batch
+        counts = torch.zeros((batch, E), dtype=torch.float32, device=xt.device)
+        counts.scatter_add_(1, expert_ids.reshape(batch, S * K),
+                            torch.ones((batch, S * K), dtype=torch.float32, device=xt.device))
+        frac = counts / (S * K / E)
+        aux = torch.sum(frac * probs.reshape(batch, S, E).mean(1), dim=1).mean()
+        return probs, gate_vals, expert_ids, aux
     counts = torch.bincount(expert_ids.reshape(-1), minlength=E).to(torch.float32)
     dispatch_frac = counts / (T * K)
     aux = E * torch.sum(dispatch_frac * probs.mean(0))
@@ -170,6 +200,8 @@ def moe_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *, group=None
         sharded = moe_forward_sharded(p, cfg, x)
         if sharded is not None:
             return sharded
+    if cfg.moe.dropless:
+        return _moe_forward_held(p, cfg, x)
     if group is not None:
         import torch.distributed as dist
 
@@ -213,6 +245,76 @@ def _moe_forward_local(p: Params, cfg: ModelConfig, x: torch.Tensor
     per_assign = per_assign * (keep_g * gate_g)[..., None]
     out = _combine_k(per_assign, K).reshape(T, D)
 
+    if m.num_shared > 0:
+        out = out + _shared(p, xt)
+    return out.reshape(B, S, D), aux
+
+
+def held_plan(local: torch.Tensor, routed: list[int], cfg: ModelConfig
+              ) -> tuple[torch.Tensor, list[int]]:
+    """The assignments the held experts compute: (indices into the T * K
+    assignments, grouped by held expert in assignment order, and each
+    expert's count). ``local`` (T * K,) is each assignment's held-expert
+    index (``held`` where another chip's expert takes it), ``routed[e]``
+    how many land on held expert e; ``cfg`` gives a plan that drops
+    assignments (GShard's capacity) the layer's sizes. Dropless: every one
+    of them."""
+    return torch.sort(local, stable=True).indices[:sum(routed)], routed
+
+
+def held_experts(rows: torch.Tensor, counts: list[int], p: Params, dt) -> torch.Tensor:
+    """The grouped SwiGLU products: rows (N, D) in segments of ``counts``,
+    segment e through held expert e of ``p``'s (held, ...) leaves."""
+    w_gate, w_up, w_down = (p[k].to(dt).unbind(0) for k in ("w_gate", "w_up", "w_down"))
+    return torch.cat([(F.silu(seg @ w_gate[e]) * (seg @ w_up[e])) @ w_down[e]
+                      for e, seg in enumerate(torch.split(rows, counts))])
+
+
+def _moe_forward_held(p: Params, cfg: ModelConfig, x: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V2's expert layer on one chip of an expert-parallel
+    deployment (``HeldMoEConfig`` with ``dropless``): route every token over
+    all ``num_experts``, compute sum_k gate_k expert_k(x) over the
+    assignments that land on this chip's ``held`` experts, dropless (no
+    capacity), then add the shared experts once. The assignments are sorted
+    by expert into contiguous segments (:func:`held_plan`), three products a
+    segment, no padding to a capacity: the segments' sizes are read to the
+    host once a layer (the layer's one synchronize). What other chips'
+    experts add is left out: on one chip the layer has no exchange.
+
+    Spans (with CUDA events): ``moe.route``; ``moe.dispatch``, the sort,
+    the sizes and the gather of the rows; ``moe.experts``, the grouped
+    products, with ``assignments`` (held assignments computed) and
+    ``max_load`` (the largest held expert's over their mean, on the
+    device); ``moe.combine``, with ``dropped`` (held assignments routed but
+    not computed, on the device)."""
+    m: MoEConfig = cfg.moe
+    B, S, D = x.shape
+    K, n, e0 = m.top_k, m.held, m.experts_first
+    T = B * S
+    dt = x.dtype
+    cuda = x.is_cuda
+    xt = x.reshape(T, D)
+    with trace.span("moe.route", events=cuda):
+        _, gate_vals, expert_ids, aux = route(p, cfg, xt, batch=B)
+    with trace.span("moe.dispatch", events=cuda):
+        eid = expert_ids.reshape(-1) - e0
+        local = torch.where((eid >= 0) & (eid < n), eid, n)
+        routed = torch.bincount(local, minlength=n + 1)[:n]
+        order, counts = held_plan(local, routed.tolist(), cfg)  # one host read a layer
+        tok = order // K
+        rows = xt.to(torch.float32)[tok].to(dt)  # gathered in float32: its backward sums there
+    with trace.span("moe.experts", events=cuda) as sp:
+        y = held_experts(rows, counts, p, dt)
+        if sp.on:
+            sp.set(assignments=sum(counts), max_load=routed.max() / torch.clamp_min(
+                routed.sum() / n, 1.0))
+    with trace.span("moe.combine", events=cuda) as sp:
+        gates = gate_vals.reshape(-1)[order].to(dt)
+        out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+        out = out.index_add(0, tok, (y * gates[:, None]).to(torch.float32)).to(dt)
+        if sp.on:
+            sp.set(dropped=routed.sum() - order.numel())
     if m.num_shared > 0:
         out = out + _shared(p, xt)
     return out.reshape(B, S, D), aux

@@ -3,7 +3,9 @@ from repro_torch.optim.adam import (
     adam_init,
     adam_update,
     adamw_update,
+    adamw_update_,
     clip_by_global_norm,
+    clip_by_global_norm_,
     global_norm,
     tree_leaves,
     tree_map,
@@ -15,7 +17,9 @@ __all__ = [
     "adam_init",
     "adam_update",
     "adamw_update",
+    "adamw_update_",
     "clip_by_global_norm",
+    "clip_by_global_norm_",
     "constant_schedule",
     "cosine_schedule",
     "global_norm",

@@ -19,7 +19,10 @@ with them. On CUDA :func:`adam_update` is ONE launch of the Adam kernel
 (``kernels/adam.py``) over every leaf, bitwise the plain formula
 (:func:`plain_adam_update`), which every other device runs.
 :func:`adamw_update` adds JAX's decoupled decay on every leaf, and
-:func:`clip_by_global_norm` scales by a device scalar (no host sync).
+:func:`clip_by_global_norm` scales by a device scalar (no host sync);
+:func:`adamw_update_` and :func:`clip_by_global_norm_` are the two in
+place, bitwise theirs (the LM step's in-place path, which keeps no second
+copy of the parameters, gradients and moments).
 """
 from __future__ import annotations
 
@@ -164,6 +167,46 @@ def adamw_update(
     return tree_map(upd, params, mu, nu), AdamState(step=step, mu=mu, nu=nu)
 
 
+INPLACE_CHUNK = 1 << 26  # elements a piece of the in-place update (its temporaries' size)
+
+
+def adamw_update_(
+    params: PyTree,
+    grads: PyTree,
+    state: AdamState,
+    lr: float = 1e-3,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+) -> tuple[PyTree, AdamState]:
+    """:func:`adamw_update` in place: ``params``, ``state.mu`` and
+    ``state.nu`` are written (and returned, the moments in a new
+    ``AdamState`` with the step advanced); ``grads`` is read only. The
+    formula is :func:`adamw_update`'s in its op order, element by element,
+    so the result is its bits (on the CPU and on the card alike); the
+    leaves go in pieces of ``INPLACE_CHUNK`` elements, so the temporaries
+    stay that small whatever the leaf. Every leaf of ``params`` and the
+    moments must be contiguous."""
+    step = state.step + 1
+    if isinstance(step, torch.Tensor):
+        t = step.to(torch.float32)
+    else:
+        t = torch.full((), float(step), dtype=torch.float32, device=tree_leaves(params)[0].device)
+    bc1 = 1.0 - b1**t
+    bc2 = 1.0 - b2**t
+    for p, g, m, v in zip(*(tree_leaves(x) for x in (params, grads, state.mu, state.nu)),
+                          strict=True):
+        for pc, mc, vc, gc in zip(*(a.view(-1).split(INPLACE_CHUNK) for a in (p, m, v)),
+                                  g.reshape(-1).split(INPLACE_CHUNK), strict=True):
+            mc.mul_(b1).add_((1 - b1) * gc)
+            vc.mul_(b2).add_((1 - b2) * (gc * gc))
+            den = torch.sqrt(vc / bc2).add_(eps)
+            upd = torch.div(mc, bc1).div_(den).add_(weight_decay * pc)
+            pc.sub_(upd.mul_(lr))
+    return params, AdamState(step=step, mu=state.mu, nu=state.nu)
+
+
 def global_norm(tree: PyTree) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, leaves
     added in :func:`tree_leaves`'s order from 0, as JAX's Python ``sum``."""
@@ -178,3 +221,12 @@ def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
     the device: nothing is read back to the host."""
     scale = torch.clamp(max_norm / (global_norm(grads) + 1e-12), max=1.0)
     return tree_map(lambda g: g * scale, grads)
+
+
+def clip_by_global_norm_(grads: PyTree, max_norm: float) -> PyTree:
+    """:func:`clip_by_global_norm` in place (the same bits): every leaf of
+    ``grads`` scaled where it is, and ``grads`` returned."""
+    scale = torch.clamp(max_norm / (global_norm(grads) + 1e-12), max=1.0)
+    for g in tree_leaves(grads):
+        g.mul_(scale)
+    return grads

@@ -17,13 +17,16 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adam import (
     AdamState,
     adam_init,
     adamw_update,
+    adamw_update_,
     clip_by_global_norm,
+    clip_by_global_norm_,
     tree_leaves,
     tree_map,
 )
@@ -80,15 +83,31 @@ def make_train_step(
     learning_rate: float = 3e-4,
     clip_norm: float = 1.0,
     microbatches: int = 1,
+    in_place: bool = False,
 ):
     """Build the train step: (state, batch) -> (new state, metrics).
 
     microbatches > 1 runs gradient accumulation: the batch is split into M
     chunks run in turn, activation memory scales ~1/M while the optimizer
     sees the same averaged gradient.
+
+    ``in_place``: clip and AdamW write the gradients, the given state's
+    parameters and moments where they are (``optim.clip_by_global_norm_``,
+    ``optim.adamw_update_``; the same bits), so the step needs no second
+    copy of them; the state passed in is then the one returned. A model
+    whose weights, gradients and moments fill most of the card needs it
+    (DeepSeek-V2-Lite's cut: 2.74 B parameters, 43.9 GB at 16 B each).
+
+    Spans (``repro_torch.trace``): ``lm.train_step``, under it ``lm.clip``
+    and ``lm.adamw`` (with CUDA events on the card; ``elements``, the
+    parameters updated).
     """
 
     def train_step(state: TrainState, batch: dict[str, torch.Tensor]):
+        with trace.span("lm.train_step"):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: dict[str, torch.Tensor]):
         if microbatches == 1:
             (loss, ce, aux), grads = _value_and_grad(state.params, cfg, batch)
         else:
@@ -104,8 +123,15 @@ def make_train_step(
             inv = 1.0 / microbatches
             grads = tree_map(lambda g: g * inv, grads)
             loss, ce, aux = loss * inv, ce * inv, aux * inv
-        grads = clip_by_global_norm(grads, clip_norm)
-        params, opt = adamw_update(state.params, grads, state.opt, lr=learning_rate)
+        leaves = tree_leaves(state.params)
+        cuda = leaves[0].is_cuda
+        with trace.span("lm.clip", events=cuda):
+            grads = (clip_by_global_norm_ if in_place else clip_by_global_norm)(grads, clip_norm)
+        with trace.span("lm.adamw", events=cuda) as sp:
+            update = adamw_update_ if in_place else adamw_update
+            params, opt = update(state.params, grads, state.opt, lr=learning_rate)
+            if sp.on:
+                sp.set(elements=sum(leaf.numel() for leaf in leaves))
         metrics = {"loss": loss, "ce": ce, "aux": aux}
         return TrainState(params, opt, state.step + 1), metrics
 

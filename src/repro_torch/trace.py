@@ -18,8 +18,9 @@ on, and :func:`epoch_ns` maps a span's stamps onto that clock.
 Finished spans wait in a bounded buffer (the oldest are dropped and
 counted) until :func:`drain` hands them over. The tracer never
 synchronizes: a span may carry a pair of CUDA events
-(:meth:`Span.device_ms`), read only at :func:`drain`, after the caller's own
-synchronize.
+(:meth:`Span.device_ms`, or its own with ``span(name, events=True)``) and
+counters that are tensors on the device, all read only at :func:`drain`,
+after the caller's own synchronize.
 
 The operator's use, around an in-situ fit::
 
@@ -74,13 +75,14 @@ class Span:
     __slots__ = ("name", "span_id", "parent_id", "trace_id", "start_ns", "end_ns", "attrs",
                  "_events", "_range")
 
-    def __init__(self, name: str, span_id: int, parent: Span | None):
+    def __init__(self, name: str, span_id: int, parent: Span | None, events: bool = False):
         self.name, self.span_id = name, span_id
         self.parent_id = parent.span_id if parent is not None else None
         self.trace_id = parent.trace_id if parent is not None else span_id
         self.start_ns = self.end_ns = 0
         self.attrs: dict = {}
-        self._events = None
+        self._events = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True)) if events else None
 
     def set(self, **attrs) -> None:
         """Attach counts taken at this boundary."""
@@ -96,9 +98,13 @@ class Span:
         self._range = torch._C._profiler._RecordFunctionFast(self.name)
         self._range.__enter__()
         self.start_ns = time.perf_counter_ns()
+        if self._events is not None:
+            self._events[0].record()
         return self
 
     def __exit__(self, *exc):
+        if self._events is not None:
+            self._events[1].record()
         self._range.__exit__(*exc)
         self._range = None
         self.end_ns = time.perf_counter_ns()
@@ -111,6 +117,9 @@ class Span:
             start, end = self._events
             self.attrs["device_ms"] = start.elapsed_time(end) if end.query() else None
             self._events = None
+        for k, v in self.attrs.items():  # counters kept on the device, read now
+            if isinstance(v, torch.Tensor):
+                self.attrs[k] = v.item()
         return {"name": self.name, "span_id": self.span_id, "parent_id": self.parent_id,
                 "trace_id": self.trace_id, "start_ns": self.start_ns, "end_ns": self.end_ns,
                 "attrs": self.attrs}
@@ -143,13 +152,15 @@ def set_enabled(on: bool) -> None:
     _TRACER.on = bool(on)
 
 
-def span(name: str):
+def span(name: str, events: bool = False):
     """A context manager timing ``name``: a :class:`Span` while tracing is
     on, else a shared no-op. Attach counts with ``.set(...)`` under
-    ``if s.on:``, so the off path builds no arguments."""
+    ``if s.on:``, so the off path builds no arguments. ``events``: the span
+    also records a CUDA event on the current stream at its start and end,
+    its ``device_ms`` read at :func:`drain`."""
     if not _TRACER.on:
         return _NOOP
-    return Span(name, next(_TRACER.ids), _TRACER.stack[-1] if _TRACER.stack else None)
+    return Span(name, next(_TRACER.ids), _TRACER.stack[-1] if _TRACER.stack else None, events)
 
 
 def drain() -> dict:
