@@ -38,8 +38,8 @@ Phases, each printed as it runs; any failure exits non-zero:
               against the JAX replicated answers.
   5. training api.fit at the paper's configuration (48,602 points, 20 x 20
               cells, m 5, delta 0.125, batch 32, lr 0.05, 2,500 steps) on
-              the card: one projection and one Adam launch per step
-              (adam.LAUNCHES zeroed before the fit), in-sample RMSPE and
+              the card: one projection, one Adam and one draws launch per
+              step (the counters zeroed before the fit), in-sample RMSPE and
               boundary RMSD inside the band of the JAX package's seeds,
               save -> load -> serve bitwise, a ppermute fit, a warm refit,
               refit(scratch) == fit bitwise. The same 2,500-step fit through
@@ -48,7 +48,8 @@ Phases, each printed as it runs; any failure exits non-zero:
               band; a 150-step warm refit through it bitwise the
               uninterrupted 2,650 steps and the eager refit; fit seconds,
               replayed step ms (device clock), capture ms. Then a wide model: api.fit at
-              grid 4, m 128 (300 steps), one projection launch a step,
+              grid 4, m 128 (300 steps), one projection and one draws
+              launch a step (the draws' streaming body: ~3,000 rows a cell),
               RMSPE within 15% of the same fit through the plain projection
               on the card (and the same pair at jitter 1e-3), served on the
               "fused" and "pallas" lanes within tolerance of backend="ref"
@@ -58,7 +59,10 @@ Phases, each printed as it runs; any failure exits non-zero:
               at its path's shape and at a 65,536-row batch (the slots
               kernel also at one cell's 65,536 rows; the projection also
               at the SPMD rank's 1 x 32; the Adam kernel in place at the
-              three cells' shapes), and at the wide
+              three cells' shapes; the draws kernel at the ne30 and ne120
+              cells' (P, n_max) and at phase 5b's grid-4 partition's (its
+              streaming body), bitwise its plain twin over 64 steps
+              first, beside the plain composition), and at the wide
               shapes beside torch.bmm of the same m x m products; p50/p95
               latency and points/s of a stream of 4,096-point requests (the
               "pallas" lane's p50 too), the host stages of a request; ms per
@@ -581,6 +585,45 @@ def check_adam_kernel(torch, dev) -> float:
     return worst
 
 
+# the draws kernel's (label, grid side, n_max) at B = 32: the storage of the
+# benchmark's ne30 and ne120 mixes (bench/field.py partitioned as the
+# benchmark partitions it: (400, 224) and (6,400, 240)), and phase 5b's
+# grid-4 partition of the paper's field (n_max None: read from that
+# partition, ~3,000 rows, the streaming body)
+DRAWS_SHAPES = (("main", 20, 224), ("6,400 cells", 80, 240), ("grid 4", 4, None))
+DRAWS_BATCH = 32
+
+
+def draws_case(torch, dev, g: int, n_max: int, seed: int):
+    """A g x g grid's slot distribution (delta 0.125) and (P, n_max) mask on
+    the card: cells of n_max / 2 .. n_max points, a tenth (at least three)
+    under the batch, two of them empty."""
+    from repro_torch.core import partition, sampler
+    from repro_torch.core.neighbors import neighbor_table
+
+    rng = np.random.default_rng(seed)
+    P = g * g
+    counts = rng.integers(n_max // 2, n_max + 1, P)
+    counts[0] = n_max
+    short = rng.choice(np.arange(1, P), max(3, P // 10), replace=False)
+    counts[short] = rng.integers(1, DRAWS_BATCH, len(short))
+    counts[short[:2]] = 0
+    mask = torch.as_tensor((np.arange(n_max)[None] < counts[:, None]).astype(np.float32),
+                           device=dev)
+    edges = np.linspace(0.0, 1.0, g + 1)
+    tbl = torch.as_tensor(neighbor_table(partition.PartitionGrid(g, g, edges, edges, False)),
+                          device=dev)
+    return sampler.slot_distribution(torch.as_tensor(counts, device=dev), tbl, 0.125), mask
+
+
+def draws_bound(P: int, n_max: int, batch: int) -> tuple[float, str]:
+    """Least time (ms) for one draws launch: the source rows' masks, probs
+    and the neighbour table read once, kprime and idx written once; the
+    scores' 4 float operations an element (the integer mixing not
+    counted)."""
+    return _bound(4 * P * n_max + 12 * 5 * P + 8 * P * (batch + 1), 4 * P * n_max)
+
+
 def train_quality(torch, fitted, data, label: str) -> tuple[float, float]:
     """In-sample RMSPE and boundary RMSD (23 probes per edge) of a model on
     the points ``data`` it was fitted to, printed with ``label``."""
@@ -604,7 +647,7 @@ def train_slice(torch, dev, card: str, report: dict, ds):
     from repro_torch.checkpoint.checkpoint import flatten
     from repro_torch.core import psvgp
     from repro_torch.data.spatial import e3sm_like_field
-    from repro_torch.kernels import adam, predict, rbf, svgp_proj
+    from repro_torch.kernels import adam, draws, predict, rbf, svgp_proj
 
     cfg = api.FitConfig(grid=20, m=5, delta=0.125, train_iters=2500, batch_size=32,
                         learning_rate=0.05, seed=0)
@@ -621,7 +664,7 @@ def train_slice(torch, dev, card: str, report: dict, ds):
         step_ms.append(1e3 * (time.perf_counter() - t0))
         return out
 
-    for counter in (svgp_proj, rbf, predict, adam):
+    for counter in (svgp_proj, rbf, predict, adam, draws):
         counter.reset_launches()
     psvgp.train_step = timed_step
     try:
@@ -630,7 +673,8 @@ def train_slice(torch, dev, card: str, report: dict, ds):
         fit_wall = time.perf_counter() - t0
     finally:
         psvgp.train_step = inner
-    launches = {**svgp_proj.LAUNCHES, **rbf.LAUNCHES, **predict.LAUNCHES, **adam.LAUNCHES}
+    launches = {**svgp_proj.LAUNCHES, **rbf.LAUNCHES, **predict.LAUNCHES, **adam.LAUNCHES,
+                **draws.LAUNCHES}
     report["launches_training_path"] = launches
     print(f"[training] api.fit (grid 20, m 5, delta 0.125, B 32, lr 0.05, 2,500 steps) on "
           f"{fitted.device}: launches {launches}")
@@ -640,6 +684,8 @@ def train_slice(torch, dev, card: str, report: dict, ds):
           f"projection launches {launches['svgp_projection']} != {cfg.train_iters} steps")
     check(launches["adam_update"] == cfg.train_iters,
           f"Adam kernel launches {launches['adam_update']} != {cfg.train_iters} steps")
+    check(launches["minibatch_draws"] == cfg.train_iters,
+          f"draws kernel launches {launches['minibatch_draws']} != {cfg.train_iters} steps")
     rmspe, rmsd = train_quality(torch, fitted, ds, "port-trained, seed 0")
     report["training_quality"] = {"rmspe": rmspe, "boundary_rmsd": rmsd}
     check(0.052 <= rmspe <= 0.068, f"RMSPE {rmspe:.5f} outside [0.052, 0.068]")
@@ -706,7 +752,7 @@ def wide_slice(torch, dev, card: str, report: dict, ds):
     from repro_torch import api
     from repro_torch.core import partition, psvgp
     from repro_torch.core.blend import blend_error_scales
-    from repro_torch.kernels import predict, ref, svgp_proj
+    from repro_torch.kernels import draws, predict, ref, svgp_proj
 
     def plain_twin(fitted):
         """``fitted``'s training run again with the plain projection."""
@@ -724,6 +770,7 @@ def wide_slice(torch, dev, card: str, report: dict, ds):
         cfg = api.FitConfig(grid=4, m=128, delta=0.125, train_iters=300, batch_size=32,
                             learning_rate=0.05, seed=0, jitter=jitter)
         svgp_proj.reset_launches()
+        draws.reset_launches()
         t0 = time.perf_counter()
         fitted = api.fit(cfg, ds)
         torch.cuda.synchronize()
@@ -731,6 +778,9 @@ def wide_slice(torch, dev, card: str, report: dict, ds):
         launches = svgp_proj.LAUNCHES["svgp_projection"]
         check(launches == cfg.train_iters,
               f"wide fit: projection launches {launches} != {cfg.train_iters} steps")
+        n_draws = draws.LAUNCHES["minibatch_draws"]
+        check(n_draws == cfg.train_iters,
+              f"wide fit: draws kernel launches {n_draws} != {cfg.train_iters} steps")
         label = f"grid 4, m 128, jitter {jitter:g}, 300 steps"
         rmspe, rmsd = train_quality(torch, fitted, ds, f"{label}, kernel")
         svgp_proj.reset_launches()
@@ -738,12 +788,14 @@ def wide_slice(torch, dev, card: str, report: dict, ds):
         check(svgp_proj.LAUNCHES["svgp_projection"] == 0, "the plain twin launched the kernel")
         rmspe_p, rmsd_p = train_quality(torch, twin, ds, f"{label}, plain projection")
         report["wide_fit"][f"jitter {jitter:g}"] = {
-            "seconds": wall, "projection_launches": launches, "rmspe": rmspe,
-            "boundary_rmsd": rmsd, "plain_rmspe": rmspe_p, "plain_boundary_rmsd": rmsd_p}
+            "seconds": wall, "projection_launches": launches, "draws_launches": n_draws,
+            "rmspe": rmspe, "boundary_rmsd": rmsd, "plain_rmspe": rmspe_p,
+            "plain_boundary_rmsd": rmsd_p}
         check(abs(rmspe - rmspe_p) <= 0.15 * rmspe_p,
               f"wide fit ({label}): RMSPE {rmspe:.5f} not within 15% of the plain "
               f"projection's {rmspe_p:.5f}")
-        print(f"[wide] [{card}] api.fit {label}: {wall:.3f} s, {launches} projection launches; "
+        print(f"[wide] [{card}] api.fit {label}: {wall:.3f} s, {launches} projection and "
+              f"{n_draws} draws launches; "
               f"RMSPE {rmspe:.5f} vs {rmspe_p:.5f} through the plain projection")
         wide = wide or fitted
     lo = [wide.grid.x_edges[0], wide.grid.y_edges[0]]
@@ -1319,14 +1371,16 @@ def lifecycle_slice(torch, dev, card: str, report: dict, trained, ds) -> None:
     train_state_phase(torch, card, report, ds)
 
 
-def training_times(torch, dev, card: str, cache, x_main, fitted, ds, report: dict) -> list:
+def training_times(torch, dev, card: str, cache, x_main, fitted, ds, report: dict,
+                   errors: dict) -> list:
     """Phase 6, training half: device time of the projection and K(X, Z)
     kernels at the training step's shape and at 65,536 rows (one cell's
-    factors), and of the Adam kernel at :data:`ADAM_SHAPES`, with their
-    plain versions and bounds; the device's busy share
-    of a training step in a profiler window of 20 steps."""
-    from repro_torch.core import partition, psvgp
-    from repro_torch.kernels import rbf, ref, svgp_proj
+    factors), of the Adam kernel at :data:`ADAM_SHAPES`, and of the draws
+    kernel at :data:`DRAWS_SHAPES` (held bitwise its plain twin there
+    first, both bodies), with their plain versions and bounds; the device's
+    busy share of a training step in a profiler window of 20 steps."""
+    from repro_torch.core import partition, psvgp, sampler
+    from repro_torch.kernels import draws, rbf, ref, svgp_proj
     from repro_torch.optim import adam_update, tree_leaves
     from repro_torch.optim.adam import plain_adam_update
 
@@ -1371,6 +1425,41 @@ def training_times(torch, dev, card: str, cache, x_main, fitted, ds, report: dic
         print(f"[times] [{card}] adam_update {label} (P, N)={(P, elems // P)}: kernel "
               f"{k_ms:.6f} ms, plain {p_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), share "
               f"{b_ms / k_ms:.4f}, floor {report['floor_ms']:.6f} ms")
+
+    # the draws: the kernel bitwise its plain twin over 64 steps from a
+    # device counter, then timed against the plain composition it replaced
+    # (the lane's torch.topk draws), both reading the counter on the card
+    errors["minibatch_draws"] = 0.0
+    for label, g, n_max in DRAWS_SHAPES:
+        if n_max is None:  # phase 5b's partition of ds
+            x_np = np.asarray(ds.x)
+            n_max = partition.partition_data(x_np, np.asarray(ds.y),
+                                             partition.make_grid(x_np, g, g)).mask.shape[1]
+        dist, mask = draws_case(torch, dev, g, n_max, seed=g)
+        step = torch.zeros((), dtype=torch.int64, device=dev)
+        for t in range(64):
+            step.fill_(2436 + t)
+            got = draws.minibatch_draws(dist.probs, dist.neighbor_tbl, mask, DRAWS_BATCH, 0, step)
+            want = ref.minibatch_draws(sampler.StepDraws(0, step, dev), dist, mask, DRAWS_BATCH)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"minibatch_draws {label} step {2436 + t}: not bitwise its plain twin")
+
+        def plain(dist=dist, mask=mask, step=step):
+            rand = sampler.StepDraws(0, step, dev)
+            kprime, _slot = sampler.sample_slots(rand, dist)
+            return sampler.sample_minibatch_indices(rand, mask[kprime], DRAWS_BATCH)
+
+        P = g * g
+        k_ms = device_ms(torch, lambda d=dist, m=mask, s=step: draws.minibatch_draws(
+            d.probs, d.neighbor_tbl, m, DRAWS_BATCH, 0, s))
+        p_ms = device_ms(torch, plain)
+        b_ms, b_by = draws_bound(P, n_max, DRAWS_BATCH)
+        rows.append(("minibatch_draws", label, (P, n_max), k_ms, p_ms, b_ms, b_by))
+        print(f"[kernels] minibatch_draws {label} (P, n_max)=({P}, {n_max}), B {DRAWS_BATCH}: "
+              "bitwise its plain twin over 64 steps (device counter)")
+        print(f"[times] [{card}] minibatch_draws {label} (P, n_max)={(P, n_max)}: kernel "
+              f"{k_ms:.6f} ms, plain composition {p_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
+              f"share {b_ms / k_ms:.4f}, floor {report['floor_ms']:.6f} ms")
 
     pdata = partition.partition_data(ds.x, ds.y, fitted.grid, device=dev)
     state = fitted.state
@@ -3782,7 +3871,7 @@ def run(report: dict, seed: int = 0) -> None:
             report[f"{key}device_busy_share"] = None
             print(f"[times] [{card}] {lane} lane: device busy share: not measured "
                   "(torch.profiler saw no device activity)")
-    rows += training_times(torch, dev, card, cache, x_train, trained, ds, report)
+    rows += training_times(torch, dev, card, cache, x_train, trained, ds, report, errors)
 
     phase_done("6 times")
 
@@ -3836,6 +3925,7 @@ def run(report: dict, seed: int = 0) -> None:
          "launches_training_path"),
         ("rbf_cross_cov", "svgp_proj.cu", "src/repro/kernels/rbf.py:46", "launches_rbf_path"),
         ("adam_update", "adam.cu", "none (XLA-fused jnp)", "launches_training_path"),
+        ("minibatch_draws", "draws.cu", "none (jax.random in jnp)", "launches_training_path"),
     ):
         _, _, _, k_ms, p_ms, b_ms, b_by = main_row(name)
         kernels.append({

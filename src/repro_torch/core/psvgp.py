@@ -18,7 +18,9 @@ JAX package's per-cell ``vmap(value_and_grad)`` computes. With
 ``SVGPConfig.use_pallas`` the ELBO's projection is ONE launch of the CUDA
 kernel per step over all (P, B) rows (``kernels/ops.SVGPProjection``). On
 CUDA the Adam update of every leaf, with Adam's counter, is ONE launch of
-the Adam kernel (``optim.adam_update``, ``kernels/adam.py``).
+the Adam kernel (``optim.adam_update``, ``kernels/adam.py``), and the
+gather step's draws ONE launch of the draws kernel (``kernels/draws.py``);
+the gather itself stays ``sampler.gather_minibatch``.
 
 A step reads nothing back to the host: the draws are counter-based
 uniforms of (seed, step) (``sampler.StepDraws``), Adam's bias corrections
@@ -56,6 +58,7 @@ from repro_torch.core.sampler import (
 )
 from repro_torch.gp.covariances import CovarianceParams, make_covariance
 from repro_torch.kernels import adam as adam_kernel
+from repro_torch.kernels import draws as draws_kernel
 from repro_torch.kernels import launches, svgp_proj
 from repro_torch.optim import AdamState, adam_init, adam_update, tree_leaves, tree_map
 from repro_torch.sharding.dtensor import rows_local
@@ -156,7 +159,11 @@ def train_step_gather(
     partition j pulls a B-point mini-batch from its sampled source k'_j.
 
     ``draws`` = (kprime (P,), idx (P, B)) replaces the step's own draws
-    (tests feed the JAX package's). Returns (new state, mean -ELBO)."""
+    (tests feed the JAX package's); on CUDA the step's own are one launch
+    of ``kernels/csrc/draws.cu``. Returns (new state, mean -ELBO)."""
+    if draws is None and x.is_cuda:
+        draws = draws_kernel.minibatch_draws(dist.probs, dist.neighbor_tbl, mask,
+                                             cfg.batch_size, seed, state.step)
     if draws is None:
         rand = StepDraws(seed, state.step, x.device)
         kprime, _slot = sample_slots(rand, dist)
@@ -358,7 +365,7 @@ class StepBuffers(PSVGPState):
 
 # the launch counts of the kernel wrappers a training step calls (the
 # projection's first: ``CapturedStep.launches``)
-COUNTED = (svgp_proj.LAUNCHES, adam_kernel.LAUNCHES)
+COUNTED = (svgp_proj.LAUNCHES, adam_kernel.LAUNCHES, draws_kernel.LAUNCHES)
 
 
 class CapturedStep:

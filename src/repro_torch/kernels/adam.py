@@ -21,7 +21,6 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.predict import check_tensor, device_index
 
 MAX_LEAVES = 32  # csrc/adam.cu's kMaxLeaves: the leaves go by value in the launch
 
@@ -33,23 +32,6 @@ LAUNCHES = {"adam_update": 0}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def _counter(name: str, c, device: torch.device, out: bool) -> tuple[int, int]:
-    """(device pointer or 0, host value) of a step counter: an int64 ()
-    tensor on ``device`` or, for an input, a host int (an output may be
-    None: nothing is written)."""
-    if isinstance(c, torch.Tensor):
-        if c.device != device or c.dtype != torch.int64 or c.dim() != 0:
-            raise ValueError(f"{name} must be an int64 () tensor on {device}, got {c.dtype} "
-                             f"{tuple(c.shape)} on {c.device}")
-        return c.data_ptr(), 0
-    if out and c is None:
-        return 0, 0
-    if out or isinstance(c, bool) or not isinstance(c, int):
-        raise TypeError(f"{name} must be an int64 () tensor{'' if out else ' or an int'}, "
-                        f"got {type(c).__name__}")
-    return 0, c
 
 
 def adam_update(p, g, m, v, p_out, m_out, v_out, step, step_out, *, lr: float, b1: float,
@@ -78,16 +60,16 @@ def adam_update(p, g, m, v, p_out, m_out, v_out, step, step_out, *, lr: float, b
                for t in (p[i], g[i], m[i], v[i])]
         leaf = (*ins, p_out[i], m_out[i], v_out[i])
         for name, t in zip(("p", "g", "m", "v", "p_out", "m_out", "v_out"), leaf, strict=True):
-            check_tensor(f"{name}[{i}]", t, shape, device)
+            build.check_tensor(f"{name}[{i}]", t, shape, device)
         keep += ins
         ptrs += [t.data_ptr() for t in leaf]
         sizes.append(p[i].numel())
-    step_in, step_host = _counter("step", step, device, out=False)
-    step_dst, _ = _counter("step_out", step_out, device, out=True)
+    step_in, step_host = build.counter_arg("step", step, device, out=False)
+    step_dst, _ = build.counter_arg("step_out", step_out, device, out=True)
     rc = build.library().psvgp_adam_update(
         (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * n)(*sizes), n,
         b1, 1 - b1, b2, 1 - b2, lr, eps, step_in, step_dst, step_host,
-        device_index(device), torch.cuda.current_stream(device).cuda_stream,
+        build.device_index(device), torch.cuda.current_stream(device).cuda_stream,
     )
     del keep  # held the copies until the launch was queued (their frees are stream-ordered)
     if rc != 0:

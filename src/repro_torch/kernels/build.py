@@ -9,7 +9,9 @@ under a name carrying the hash of the sources and flags, so a changed
 source rebuilds and an unchanged one loads what is already there.
 
 Nothing here runs at import time: the CPU tests import every module of
-the port on a machine without ``nvcc``.
+the port on a machine without ``nvcc``. The argument checks that every
+wrapper shares (``check_tensor``, ``device_index``, ``counter_arg``) live
+here too, beside ``library()``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -44,6 +48,9 @@ SIGNATURES = {
     # ptrs, sizes, leaves, b1, 1 - b1, b2, 1 - b2, lr, eps, step_in, step_out, step_host,
     # device, stream
     "psvgp_adam_update": [_P, _P, _I] + [_F] * 6 + [_P, _P, _L, _I, _P],
+    # probs, tbl, mask, kprime, idx, keys, step_in, step_host, stream_key, P, n_max, B,
+    # device, stream
+    "psvgp_minibatch_draws": [_P] * 7 + [_L, _L] + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -135,3 +142,41 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             _lib = bind(build())
         return _lib
+
+
+def check_tensor(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Refuse what a kernel does not take: a non-tensor, another device,
+    another dtype than ``dtype``, another shape, a non-contiguous layout."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {str(dtype).removeprefix('torch.')}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def device_index(device: torch.device) -> int:
+    """The CUDA ordinal of ``device`` (the current device for bare "cuda")."""
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def counter_arg(name: str, c, device: torch.device, out: bool) -> tuple[int, int]:
+    """(device pointer or 0, host value) of a step counter: an int64 ()
+    tensor on ``device`` or, for an input, a host int (an output may be
+    None: nothing is written)."""
+    if isinstance(c, torch.Tensor):
+        if c.device != device or c.dtype != torch.int64 or c.dim() != 0:
+            raise ValueError(f"{name} must be an int64 () tensor on {device}, got {c.dtype} "
+                             f"{tuple(c.shape)} on {c.device}")
+        return c.data_ptr(), 0
+    if out and c is None:
+        return 0, 0
+    if out or isinstance(c, bool) or not isinstance(c, int):
+        raise TypeError(f"{name} must be an int64 () tensor{'' if out else ' or an int'}, "
+                        f"got {type(c).__name__}")
+    return 0, c

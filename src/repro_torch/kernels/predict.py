@@ -41,26 +41,6 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def check_tensor(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    """Refuse what a kernel does not take: a non-tensor, another device,
-    another dtype than float32, another shape, a non-contiguous layout."""
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def device_index(device: torch.device) -> int:
-    """The CUDA ordinal of ``device`` (the current device for bare "cuda")."""
-    return device.index if device.index is not None else torch.cuda.current_device()
-
-
 def _launch(hx, z, log_l, log_var, w, u, c) -> tuple[torch.Tensor, torch.Tensor]:
     """Validate the (P, S, Q, d) problem and run one launch of the kernel."""
     if not isinstance(hx, torch.Tensor) or hx.dim() != 4:
@@ -81,20 +61,20 @@ def _launch(hx, z, log_l, log_var, w, u, c) -> tuple[torch.Tensor, torch.Tensor]
             f"the CUDA prediction kernel takes CUDA tensors, got {device}; "
             "CPU tensors go to the plain versions in repro_torch.kernels.ref"
         )
-    check_tensor("hx", hx, (P, S, Q, d), device)
-    check_tensor("z", z, (P, m, d), device)
-    check_tensor("log_lengthscale", log_l, (P, d), device)
-    check_tensor("log_variance", log_var, (P,), device)
-    check_tensor("w", w, (P, m, m), device)
-    check_tensor("u", u, (P, m, m), device)
-    check_tensor("c", c, (P, m), device)
+    build.check_tensor("hx", hx, (P, S, Q, d), device)
+    build.check_tensor("z", z, (P, m, d), device)
+    build.check_tensor("log_lengthscale", log_l, (P, d), device)
+    build.check_tensor("log_variance", log_var, (P,), device)
+    build.check_tensor("w", w, (P, m, m), device)
+    build.check_tensor("u", u, (P, m, m), device)
+    build.check_tensor("c", c, (P, m), device)
     mean = torch.empty((P, S, Q), dtype=torch.float32, device=device)
     fvar = torch.empty((P, S, Q), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = build.library().psvgp_posterior_predict(
         hx.data_ptr(), z.data_ptr(), log_l.data_ptr(), log_var.data_ptr(),
         w.data_ptr(), u.data_ptr(), c.data_ptr(), mean.data_ptr(), fvar.data_ptr(),
-        P, S, Q, m, d, device_index(device), stream,
+        P, S, Q, m, d, build.device_index(device), stream,
     )
     if rc != 0:
         raise RuntimeError(f"posterior-predict kernel launch failed: cudaError {rc}")

@@ -17,7 +17,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.predict import device_index
 from repro_torch.kernels.svgp_proj import check_problem
 
 MAX_M = 2**31 - 1  # no m x m factor is staged: m is bounded by the C int only
@@ -37,7 +36,7 @@ def rbf_cross_cov(x, z, log_lengthscale, log_variance):
     knm = torch.empty((P, B, m), dtype=torch.float32, device=device)
     rc = build.library().psvgp_rbf_cross_cov(
         x.data_ptr(), z.data_ptr(), log_lengthscale.data_ptr(), log_variance.data_ptr(),
-        knm.data_ptr(), P, B, m, d, device_index(device),
+        knm.data_ptr(), P, B, m, d, build.device_index(device),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.sampler import sample_slots
+
 
 def rbf_cross_cov(
     x: torch.Tensor, z: torch.Tensor, log_lengthscale: torch.Tensor, log_variance: torch.Tensor
@@ -137,6 +139,21 @@ def posterior_predict_slots_masked(hx, qmask, z, log_lengthscale, log_variance, 
     """
     mean, fvar = posterior_predict_slots(hx, z, log_lengthscale, log_variance, w, u, c)
     return mean * qmask, fvar * qmask
+
+
+def minibatch_draws(draws, dist, mask: torch.Tensor,
+                    batch: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``csrc/draws.cu``: the gather step's draws as
+    ``core/sampler.py`` composes them (``sample_slots``, then the masked
+    uniform scores of ``sample_minibatch_indices`` over the source rows),
+    each row's batch ranked by a stable descending sort in place of
+    ``torch.topk``: the higher score first, equal scores the lower index
+    first. ``draws`` a ``sampler.StepDraws``, ``dist`` a
+    ``sampler.SlotDistribution``; returns (kprime (P,), idx (P, B))."""
+    kprime, _slot = sample_slots(draws, dist)
+    rows = mask[kprime]
+    scores = draws.uniform(tuple(rows.shape)) + (rows - 1.0) * 1e9
+    return kprime, torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :batch]
 
 
 # ---------------------------------------------------------------------------

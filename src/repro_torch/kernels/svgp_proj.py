@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.predict import MAX_GRID_YZ, MAX_M, check_tensor, device_index
+from repro_torch.kernels.predict import MAX_GRID_YZ, MAX_M
 
 # kernel launches; ``reset_launches`` zeroes it (chip_smoke.py reads it
 # around a fit to show that every training step ran the kernel once)
@@ -60,10 +60,10 @@ def check_problem(
             f"the CUDA kernels take CUDA tensors, got {device}; CPU tensors go "
             "to the plain versions in repro_torch.kernels.ref"
         )
-    check_tensor("x", x, (P, B, d), device)
-    check_tensor("z", z, (P, m, d), device)
-    check_tensor("log_lengthscale", log_lengthscale, (P, d), device)
-    check_tensor("log_variance", log_variance, (P,), device)
+    build.check_tensor("x", x, (P, B, d), device)
+    build.check_tensor("z", z, (P, m, d), device)
+    build.check_tensor("log_lengthscale", log_lengthscale, (P, d), device)
+    build.check_tensor("log_variance", log_variance, (P,), device)
     return device, P, B, m, d
 
 
@@ -72,14 +72,14 @@ def svgp_projection(x, z, log_lengthscale, log_variance, w):
     w (P, m, m), lower triangular -> (knm (P, B, m), lk_t (P, B, m),
     q_diag (P, B)). One launch."""
     device, P, B, m, d = check_problem(x, z, log_lengthscale, log_variance)
-    check_tensor("w", w, (P, m, m), device)
+    build.check_tensor("w", w, (P, m, m), device)
     knm = torch.empty((P, B, m), dtype=torch.float32, device=device)
     lk_t = torch.empty((P, B, m), dtype=torch.float32, device=device)
     q_diag = torch.empty((P, B), dtype=torch.float32, device=device)
     rc = build.library().psvgp_svgp_projection(
         x.data_ptr(), z.data_ptr(), log_lengthscale.data_ptr(), log_variance.data_ptr(),
         w.data_ptr(), knm.data_ptr(), lk_t.data_ptr(), q_diag.data_ptr(),
-        P, B, m, d, device_index(device), torch.cuda.current_stream(device).cuda_stream,
+        P, B, m, d, build.device_index(device), torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"svgp-projection kernel launch failed: cudaError {rc}")

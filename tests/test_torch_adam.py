@@ -287,7 +287,8 @@ def test_cuda_replays_launch_adam_once_and_copy_no_state(cuda_device):
     static, state, data = _problem(cuda_device)
     warm = psvgp.fit(static, state, data, psvgp.WARMUP_STEPS, use_scan=True)
     captured = psvgp.CapturedStep(static, psvgp.device_counters(warm, cuda_device), data)
-    assert captured.captured == [{"svgp_projection": 1}, {"adam_update": 1}]
+    assert captured.captured == [{"svgp_projection": 1}, {"adam_update": 1},
+                                 {"minibatch_draws": 1}]
     assert captured.launches == {"svgp_projection": 1}
     torch.cuda.synchronize()
     before = adam_kernel.LAUNCHES["adam_update"]

@@ -251,7 +251,8 @@ def test_wrappers_refuse_m_past_the_wide_limit_with_the_limit(m):
 
 
 def test_build_is_lazy_and_keyed_by_source_content(tmp_path, monkeypatch):
-    assert [p.name for p in build.sources()] == ["adam.cu", "predict.cu", "svgp_proj.cu"]
+    assert [p.name for p in build.sources()] == ["adam.cu", "draws.cu", "predict.cu",
+                                                 "svgp_proj.cu"]
     assert [p.name for p in build.headers()] == ["kernel_common.cuh"]
     assert build._lib is None  # importing the package built nothing
     h = build.source_hash()
