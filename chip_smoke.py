@@ -648,6 +648,7 @@ def train_slice(torch, dev, card: str, report: dict, ds):
     from repro_torch.core import psvgp
     from repro_torch.data.spatial import e3sm_like_field
     from repro_torch.kernels import adam, draws, predict, rbf, svgp_proj
+    from repro_torch.kernels import launches as kernel_launches
 
     cfg = api.FitConfig(grid=20, m=5, delta=0.125, train_iters=2500, batch_size=32,
                         learning_rate=0.05, seed=0)
@@ -664,8 +665,7 @@ def train_slice(torch, dev, card: str, report: dict, ds):
         step_ms.append(1e3 * (time.perf_counter() - t0))
         return out
 
-    for counter in (svgp_proj, rbf, predict, adam, draws):
-        counter.reset_launches()
+    kernel_launches.reset()
     psvgp.train_step = timed_step
     try:
         t0 = time.perf_counter()
@@ -753,6 +753,7 @@ def wide_slice(torch, dev, card: str, report: dict, ds):
     from repro_torch.core import partition, psvgp
     from repro_torch.core.blend import blend_error_scales
     from repro_torch.kernels import draws, predict, ref, svgp_proj
+    from repro_torch.kernels import launches as kernel_launches
 
     def plain_twin(fitted):
         """``fitted``'s training run again with the plain projection."""
@@ -769,8 +770,7 @@ def wide_slice(torch, dev, card: str, report: dict, ds):
     for jitter in (1e-5, 1e-3):
         cfg = api.FitConfig(grid=4, m=128, delta=0.125, train_iters=300, batch_size=32,
                             learning_rate=0.05, seed=0, jitter=jitter)
-        svgp_proj.reset_launches()
-        draws.reset_launches()
+        kernel_launches.reset()
         t0 = time.perf_counter()
         fitted = api.fit(cfg, ds)
         torch.cuda.synchronize()
@@ -783,7 +783,7 @@ def wide_slice(torch, dev, card: str, report: dict, ds):
               f"wide fit: draws kernel launches {n_draws} != {cfg.train_iters} steps")
         label = f"grid 4, m 128, jitter {jitter:g}, 300 steps"
         rmspe, rmsd = train_quality(torch, fitted, ds, f"{label}, kernel")
-        svgp_proj.reset_launches()
+        kernel_launches.reset()
         twin = plain_twin(fitted)
         check(svgp_proj.LAUNCHES["svgp_projection"] == 0, "the plain twin launched the kernel")
         rmspe_p, rmsd_p = train_quality(torch, twin, ds, f"{label}, plain projection")
@@ -805,7 +805,7 @@ def wide_slice(torch, dev, card: str, report: dict, ds):
     mean_scale, var_scale = blend_error_scales(wide.cache, wide.grid, q)
     for lane, entry in (("fused", "posterior_predict_slots"), ("pallas", "posterior_predict")):
         server = api.Server(wide, api.ServeConfig(mode="sharded", backend=lane))
-        predict.reset_launches()
+        kernel_launches.reset()
         got = server.submit(q)
         n = predict.LAUNCHES[entry]
         check(n == 1, f"wide {lane} lane: {n} launches of {entry} in one request, not 1")
@@ -851,6 +851,7 @@ def insitu_loop(torch, card: str, report: dict, trained, store: str) -> tuple:
     from repro_torch.core import metrics, partition
     from repro_torch.data.spatial import e3sm_like_field
     from repro_torch.kernels import predict, svgp_proj
+    from repro_torch.kernels import launches as kernel_launches
 
     server = api.Server(trained, api.ServeConfig(mode="sharded", pipeline="pipelined"))
     check(server.backend == "fused", f"the in-situ server resolved to {server.backend}")
@@ -861,7 +862,7 @@ def insitu_loop(torch, card: str, report: dict, trained, store: str) -> tuple:
     steps = []
     for t in (1, 2, 3):
         data = e3sm_like_field(n=48602, seed=100 + t)
-        svgp_proj.reset_launches()
+        kernel_launches.reset()
         t0 = time.perf_counter()
         new = api.refit(versions[-1], data, api.RefitConfig(train_iters=150))
         torch.cuda.synchronize()
@@ -888,7 +889,7 @@ def insitu_loop(torch, card: str, report: dict, trained, store: str) -> tuple:
                 rec.update(server.swap(new, version=t))
 
         server.reset_stats()
-        predict.reset_launches()
+        kernel_launches.reset()
         swapped = server.stream(batches, warm=False, on_result=on_result)
         launches = dict(predict.LAUNCHES)
         routed = server.stats()["requests"]
@@ -940,6 +941,7 @@ def frontdoor_phase(card: str, report: dict, server) -> None:
 
     from repro_torch import api
     from repro_torch.kernels import predict
+    from repro_torch.kernels import launches as kernel_launches
 
     grid = server.fitted.grid
     rng = np.random.default_rng(500)
@@ -963,7 +965,7 @@ def frontdoor_phase(card: str, report: dict, server) -> None:
             await asyncio.wait_for(fd.close(), 120)
         return got, fd.report()
 
-    predict.reset_launches()
+    kernel_launches.reset()
     got, rep = asyncio.run(drive(api.FrontDoorConfig()))
     launches = dict(predict.LAUNCHES)
     check(launches["posterior_predict_slots"] == rep["batches"]["count"],
@@ -1242,6 +1244,7 @@ def scan_slice(torch, dev, card: str, report: dict, fitted, ds):
     from repro_torch.checkpoint.checkpoint import flatten
     from repro_torch.core import partition, psvgp
     from repro_torch.kernels import svgp_proj
+    from repro_torch.kernels import launches as kernel_launches
 
     def differ(a, b):
         a, b = flatten(a), flatten(b)
@@ -1273,7 +1276,7 @@ def scan_slice(torch, dev, card: str, report: dict, fitted, ds):
         capture.append(time.perf_counter())
         return out
 
-    svgp_proj.reset_launches()
+    kernel_launches.reset()
     graph_cls.replay, graph_cls.capture_begin, graph_cls.capture_end = (
         timed_replay, timed_begin, timed_end)
     try:
@@ -1779,6 +1782,7 @@ def _mesh_serve(group, artifact: str, reqs_file: str, device: str) -> dict:
 
     from repro_torch import api
     from repro_torch.kernels import predict
+    from repro_torch.kernels import launches as kernel_launches
 
     rank = group.rank()
     reqs = list(np.load(reqs_file)["reqs"])
@@ -1789,7 +1793,7 @@ def _mesh_serve(group, artifact: str, reqs_file: str, device: str) -> dict:
                             group=group)
         server.submit(reqs[0])  # warm-up, not counted
         server.reset_stats()
-        predict.reset_launches()
+        kernel_launches.reset()
         res: list = []
         t0 = time.perf_counter()
         rec = server.stream(reqs, warm=False, on_result=lambda i, r, res=res: res.append(r))
@@ -1965,6 +1969,7 @@ def _spmd_train(group, inputs: str, device: str, marks: dict) -> dict:
     from repro_torch.core import psvgp_spmd as spmd
     from repro_torch.device import resolve_device
     from repro_torch.kernels import svgp_proj
+    from repro_torch.kernels import launches as kernel_launches
     from repro_torch.launch import serve_sharded as ss
 
     rank = group.rank()
@@ -1980,7 +1985,7 @@ def _spmd_train(group, inputs: str, device: str, marks: dict) -> dict:
     state = spmd.shard_state(state, mesh)
     marks["ready"] = time.time()
     out: dict = {"batches": [], "step_ms": [], "marks": marks}
-    svgp_proj.reset_launches()
+    kernel_launches.reset()
     mesh.reset_stats()
     for t in range(SPMD_STEPS):
         t0 = time.perf_counter()
@@ -2082,9 +2087,10 @@ def spmd_inputs(torch, dev) -> dict:
     first SPMD_CHECKED steps' batches."""
     from repro_torch.core import psvgp, sampler
     from repro_torch.kernels import svgp_proj
+    from repro_torch.kernels import launches as kernel_launches
 
     grid, data, static, state0 = spmd_problem(dev)
-    svgp_proj.reset_launches()
+    kernel_launches.reset()
     one = psvgp.fit(static, state0, data, SPMD_STEPS)
     one_launches = svgp_proj.LAUNCHES["svgp_projection"]
     two = psvgp.fit(static, state0, data, 2)
@@ -3431,6 +3437,7 @@ def dryrun_phase(torch, dev, card: str, report: dict) -> None:
     from repro_torch.configs import get
     from repro_torch.configs.shapes import InputShape
     from repro_torch.kernels import svgp_proj
+    from repro_torch.kernels import launches as kernel_launches
     from repro_torch.launch import dryrun, hlo_analysis, pins
     from repro_torch.launch.mesh import MeshSpec, make_production_mesh
 
@@ -3491,7 +3498,7 @@ def dryrun_phase(torch, dev, card: str, report: dict) -> None:
             # -- 16c. the PSVGP rank step on the card under the 256-rank group
             mesh = make_production_mesh()
             cpu = dryrun.psvgp_rank_trace(mesh, "cpu")
-            svgp_proj.reset_launches()
+            kernel_launches.reset()
             gpu = dryrun.psvgp_rank_trace(mesh, "cuda")
             torch.cuda.synchronize()
             launches = svgp_proj.LAUNCHES["svgp_projection"]
@@ -3551,6 +3558,7 @@ def run(report: dict, seed: int = 0) -> None:
     from repro_torch.core.blend import blend_error_scales
     from repro_torch.data.spatial import e3sm_like_field, zipf_query_stream
     from repro_torch.kernels import build, ops, predict, rbf, ref
+    from repro_torch.kernels import launches as kernel_launches
 
     dev = torch.device("cuda")
     card = card_line()
@@ -3717,7 +3725,7 @@ def run(report: dict, seed: int = 0) -> None:
     server = api.Server.from_artifact(FIXTURE, api.ServeConfig(mode="sharded"))
     check(server.backend == "fused" and server.device.type == "cuda",
           f"auto lane resolved to {server.backend} on {server.device}")
-    predict.reset_launches()
+    kernel_launches.reset()
     mean, var = server.submit(queries)  # the main path, counted
     launches = dict(predict.LAUNCHES)
     report["launches_main_path"] = launches
@@ -3743,7 +3751,7 @@ def run(report: dict, seed: int = 0) -> None:
           f"(spilled {two.stats()['spilled']} queries)")
 
     pallas = api.Server(fitted, api.ServeConfig(mode="sharded", backend="pallas"))
-    predict.reset_launches()
+    kernel_launches.reset()
     mp, vp = pallas.submit(queries)  # the "pallas" lane's path, counted
     launches_pallas = dict(predict.LAUNCHES)
     report["launches_pallas_path"] = launches_pallas
@@ -3762,7 +3770,7 @@ def run(report: dict, seed: int = 0) -> None:
     trained = train_slice(torch, dev, card, report, ds)
     scan_slice(torch, dev, card, report, trained, ds)
     wide_slice(torch, dev, card, report, ds)
-    rbf.reset_launches()
+    kernel_launches.reset()
     ops.rbf_cross_cov(x_train, cache.z, cache.cov.log_lengthscale, cache.cov.log_variance)
     report["launches_rbf_path"] = dict(rbf.LAUNCHES)
     print(f"[kernels] ops.rbf_cross_cov (the one entry that reaches it, as in the JAX "

@@ -11,7 +11,7 @@ a **trace** of one probe request through the lane's real request stages
     over the stages, with its stage, output dtypes and devices, and the
     source site ("path:function") that issued it;
   * every kernel dispatch: the calls into ``kernels/ops.py``'s dispatching
-    entries, counted by the CUDA wrappers' ``LAUNCHES`` on the card (a
+    entries, counted by ``kernels/launches.py``'s registry on the card (a
     ctypes launch is invisible to a dispatch mode) and by the calls on the
     CPU, where the entry runs the kernel's plain version. Either way the
     ops inside an entry are the kernel's and are not recorded one by one;
@@ -271,20 +271,19 @@ class _Mode(TorchDispatchMode):
 
 def _wrap_kernel(name: str, fn):
     def entry(*args, **kwargs):
-        from repro_torch.kernels import predict, rbf, svgp_proj
+        from repro_torch.kernels import launches
 
         rec = _ACTIVE[-1] if _ACTIVE else None
         if rec is None:
             return fn(*args, **kwargs)
-        counters = (predict.LAUNCHES, svgp_proj.LAUNCHES, rbf.LAUNCHES)
-        before = sum(sum(c.values()) for c in counters)
+        before = launches.total()
         rec.suppress += 1
         try:
             out = fn(*args, **kwargs)
         finally:
             rec.suppress -= 1
         on_cuda = any(t.device.type == "cuda" for t in _tensors((args, kwargs)))
-        n = sum(sum(c.values()) for c in counters) - before if on_cuda else 1
+        n = launches.total() - before if on_cuda else 1
         rec.kernel(name, n, _tensors(out))
         return out
 

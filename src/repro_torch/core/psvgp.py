@@ -19,8 +19,9 @@ JAX package's per-cell ``vmap(value_and_grad)`` computes. With
 kernel per step over all (P, B) rows (``kernels/ops.SVGPProjection``). On
 CUDA the Adam update of every leaf, with Adam's counter, is ONE launch of
 the Adam kernel (``optim.adam_update``, ``kernels/adam.py``), and the
-gather step's draws ONE launch of the draws kernel (``kernels/draws.py``);
-the gather itself stays ``sampler.gather_minibatch``.
+gather step's draws ONE launch of the draws kernel (``ops.minibatch_draws``,
+``kernels/draws.py``; on the CPU its plain twin, the same bits); the gather
+itself stays ``sampler.gather_minibatch``.
 
 A step reads nothing back to the host: the draws are counter-based
 uniforms of (seed, step) (``sampler.StepDraws``), Adam's bias corrections
@@ -52,14 +53,11 @@ from repro_torch.core.sampler import (
     categorical,
     gather_minibatch,
     sample_minibatch_indices,
-    sample_slots,
     slot_distribution,
     stream_seed,
 )
 from repro_torch.gp.covariances import CovarianceParams, make_covariance
-from repro_torch.kernels import adam as adam_kernel
-from repro_torch.kernels import draws as draws_kernel
-from repro_torch.kernels import launches, svgp_proj
+from repro_torch.kernels import launches, ops
 from repro_torch.optim import AdamState, adam_init, adam_update, tree_leaves, tree_map
 from repro_torch.sharding.dtensor import rows_local
 
@@ -159,17 +157,11 @@ def train_step_gather(
     partition j pulls a B-point mini-batch from its sampled source k'_j.
 
     ``draws`` = (kprime (P,), idx (P, B)) replaces the step's own draws
-    (tests feed the JAX package's); on CUDA the step's own are one launch
-    of ``kernels/csrc/draws.cu``. Returns (new state, mean -ELBO)."""
-    if draws is None and x.is_cuda:
-        draws = draws_kernel.minibatch_draws(dist.probs, dist.neighbor_tbl, mask,
-                                             cfg.batch_size, seed, state.step)
+    (tests feed the JAX package's); the step's own are
+    ``ops.minibatch_draws``'s. Returns (new state, mean -ELBO)."""
     if draws is None:
-        rand = StepDraws(seed, state.step, x.device)
-        kprime, _slot = sample_slots(rand, dist)
-        idx, _ = sample_minibatch_indices(rand, mask[kprime], cfg.batch_size)
-    else:
-        kprime, idx = draws
+        draws = ops.minibatch_draws(dist, mask, cfg.batch_size, seed, state.step)
+    kprime, idx = draws
     bx, by, bm = gather_minibatch(x, y, mask, kprime, idx)
     # cell by cell: a sharded trace (the dry-run's) updates each rank's cells
     new, losses = rows_local(lambda *a: _sgd_step(*a, cfg, cov_fn), state, bx, by, bm,
@@ -363,11 +355,6 @@ class StepBuffers(PSVGPState):
     __slots__ = ()
 
 
-# the launch counts of the kernel wrappers a training step calls (the
-# projection's first: ``CapturedStep.launches``)
-COUNTED = (svgp_proj.LAUNCHES, adam_kernel.LAUNCHES, draws_kernel.LAUNCHES)
-
-
 class CapturedStep:
     """One SGD step over static state buffers, replayed.
 
@@ -380,9 +367,9 @@ class CapturedStep:
     initialization must have run, e.g. by eager steps on a side stream)
     and :meth:`replay` launches the graph; on the CPU :meth:`replay` runs
     the same step eagerly. The kernels' wrappers ran once, at capture,
-    when nothing launched: each wrapper's count in :data:`COUNTED` counts
-    the launches each replay makes instead (:attr:`captured`, one mapping
-    a count; :attr:`launches`, the projection's)."""
+    when nothing launched: every counter of ``kernels/launches.py`` counts
+    the launches each replay makes instead (:attr:`captured`, {entry:
+    launches a replay} of the entries that launched)."""
 
     def __init__(self, static: PSVGPStatic, state: PSVGPState, data: PartitionedData,
                  seed: int | None = None):
@@ -390,11 +377,11 @@ class CapturedStep:
         self.seed = static.cfg.seed if seed is None else seed
         self.buffers = StepBuffers(*tree_map(torch.clone, state))
         self.graph = None
-        self.captured: list[dict] = [{} for _ in COUNTED]
+        self.captured: dict[str, int] = {}
         dev = data.x.device
         if dev.type == "cuda":
             self.graph = torch.cuda.CUDAGraph()
-            before = [dict(count) for count in COUNTED]
+            before = launches.counts()
             with trace.span("psvgp.capture") as sp:
                 memory = _memory(dev) if sp.on else None
                 with torch.cuda.graph(self.graph):
@@ -403,9 +390,7 @@ class CapturedStep:
                 if sp.on:
                     grew = _memory_delta(memory, dev)
                     sp.set(reserved_bytes=grew["reserved"], device_allocs=grew["device_allocs"])
-            self.captured = [launches.captured_launches(count, b)
-                             for count, b in zip(COUNTED, before, strict=True)]
-        self.launches = self.captured[0]
+            self.captured = launches.captured_launches(before)
 
     def _step(self) -> None:
         train_step(self.static, self.buffers, self.data, self.seed)
@@ -424,8 +409,7 @@ class CapturedStep:
                     self._step()
                 else:
                     self.graph.replay()
-            for count, one in zip(COUNTED, self.captured, strict=True):
-                launches.count_replays(count, one, n)
+            launches.count_replays(self.captured, n)
             if sp.on:
                 sp.set(replays=n)
                 if events is not None:

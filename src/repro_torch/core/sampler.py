@@ -18,7 +18,9 @@ function of (seed, step, draw, element) alone, computed with torch integer
 ops from a step counter that may live on the device — as
 ``fold_in(key, step)`` does, a warm refit never replays step 0's batches,
 and a CUDA graph of the step draws step t's numbers at its t-th replay.
-The bits are the same on the CPU and on the card.
+The uniforms are the same bits on the CPU and on the card, and so is the
+gather step's ranking (``kernels.ops.minibatch_draws``: the kernel or its
+plain twin); the ppermute and SPMD steps rank by ``torch.topk``.
 """
 from __future__ import annotations
 

@@ -20,18 +20,11 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 
 MAX_LEAVES = 32  # csrc/adam.cu's kMaxLeaves: the leaves go by value in the launch
 
-# kernel launches (a replayed graph's are counted by ``kernels/launches.py``);
-# ``reset_launches`` zeroes it (chip_smoke.py reads it around a fit)
-LAUNCHES = {"adam_update": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+LAUNCHES = launches.counter({"adam_update": 0})
 
 
 def adam_update(p, g, m, v, p_out, m_out, v_out, step, step_out, *, lr: float, b1: float,

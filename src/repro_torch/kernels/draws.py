@@ -5,11 +5,12 @@ cell k'_p of eq. (9) by Gumbel-max over the cell's slot probabilities, and
 the B rows of that source with the highest masked uniform scores. It
 replaces no Pallas kernel (the JAX package draws with ``jax.random`` in
 plain jnp); on the port's CUDA step it takes the place of the plain
-composition's 67 device ops (``core/sampler.py``: ``StepDraws``,
-``sample_slots``, ``mask[kprime]``, ``sample_minibatch_indices``). Its
-numbers are those uniforms, bit for bit; its rows are ranked by a rule of
-its own where scores tie (the higher score first, then the lower index),
-which ``ref.minibatch_draws``, its plain version, states in PyTorch.
+composition's 67 device ops (``ref.minibatch_draws``: ``StepDraws``,
+``sample_slots``, ``mask[kprime]``, the masked uniform scores). Its numbers
+are those uniforms, bit for bit, and its rows are ranked as the composition
+ranks them (the higher score first, then the lower index where scores
+tie). ``ops.minibatch_draws`` sends CUDA tensors here and CPU tensors to
+``ref.minibatch_draws``, the plain twin.
 
 The wrapper checks shapes, device, dtype and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises if the
@@ -22,20 +23,13 @@ import torch
 
 from repro_torch.core.neighbors import NUM_SLOTS
 from repro_torch.core.sampler import stream_seed
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 
 # csrc/draws.cu's kFastMaxRow: a longer row takes the streaming body, which
 # needs a (P, B) scratch
 MAX_FAST_ROW = 512
 
-# kernel launches (a replayed graph's are counted by ``kernels/launches.py``);
-# ``reset_launches`` zeroes it (chip_smoke.py reads it around a fit)
-LAUNCHES = {"minibatch_draws": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+LAUNCHES = launches.counter({"minibatch_draws": 0})
 
 
 def minibatch_draws(probs, neighbor_tbl, mask, batch: int, seed: int,
@@ -55,7 +49,7 @@ def minibatch_draws(probs, neighbor_tbl, mask, batch: int, seed: int,
     device = mask.device
     if device.type != "cuda":
         raise ValueError(f"the CUDA draws kernel takes CUDA tensors, got {device}; CPU tensors "
-                         "go to the plain draws in repro_torch.core.sampler")
+                         "go to the plain twin in repro_torch.kernels.ref")
     build.check_tensor("probs", probs, (P, NUM_SLOTS), device)
     build.check_tensor("neighbor_tbl", neighbor_tbl, (P, NUM_SLOTS), device, torch.int64)
     build.check_tensor("mask", mask, (P, n_max), device)

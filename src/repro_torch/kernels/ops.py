@@ -1,20 +1,21 @@
 """Dispatch between the CUDA kernels and their plain versions.
 
-The rule is the tensor's device and nothing else: a CPU tensor goes to the
-plain PyTorch version (``kernels/ref.py``); a CUDA tensor launches the
-kernel (``kernels/predict.py``, ``svgp_proj.py``, ``rbf.py``) or raises —
-there is no fallback. Unlike the JAX package's ``repro.kernels.ops`` there
-is no padding here: the kernels take any m up to ``predict.MAX_M`` (2,048;
-K(X, Z) any m), any d and any row count >= 1 as they are. Every entry takes
-the JAX package's single-model signature and, with a leading cell axis P on
-every argument, the cell-axis one that runs all P cells in one launch.
+The rule is the tensor's device and nothing else (:func:`on_cuda`, which
+every kernel call site asks): a CPU tensor goes to the plain PyTorch
+version (``ref.py``); a CUDA tensor launches the kernel (``predict.py``,
+``svgp_proj.py``, ``rbf.py``, ``draws.py``; ``optim.adam_update``'s
+``adam.py``) or raises. Unlike ``repro.kernels.ops`` there is no padding:
+the kernels take any m up to ``predict.MAX_M`` (2,048; K(X, Z) any m), any
+d and any row count >= 1. Every prediction entry takes the JAX signature
+and, with a leading cell axis P, the one that runs P cells in one launch.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.gp.covariances import rbf as _rbf_covariance
-from repro_torch.kernels import predict, ref, svgp_proj
+from repro_torch.core.sampler import StepDraws
+from repro_torch.kernels import draws, predict, ref, svgp_proj
 from repro_torch.kernels import rbf as rbf_kernel
 
 
@@ -34,7 +35,8 @@ def require_rbf(cov_fn) -> None:
         )
 
 
-def _on_cuda(x: torch.Tensor) -> bool:
+def on_cuda(x: torch.Tensor) -> bool:
+    """The one dispatch rule: True on CUDA (the kernel), False on the CPU."""
     if x.device.type == "cuda":
         return True
     if x.device.type == "cpu":
@@ -48,7 +50,7 @@ def posterior_predict(x, z, log_lengthscale, log_variance, w, u, c, *, cov_fn=No
     on CUDA; fvar un-clamped and without noise (callers own both)."""
     require_rbf(cov_fn)
     single = _single(x)
-    if not _on_cuda(x):
+    if not on_cuda(x):
         return ref.posterior_predict(x, z, log_lengthscale, log_variance, w, u, c)
     if single:
         mean, fvar = predict.posterior_predict(
@@ -63,7 +65,7 @@ def posterior_predict_slots(hx, z, log_lengthscale, log_variance, w, u, c, *, co
     """One model on S stacked query blocks: hx (S, Q, d) -> (S, Q) pairs
     (the JAX signature; on CUDA the cell-axis kernel with P = 1)."""
     require_rbf(cov_fn)
-    if _on_cuda(hx):
+    if on_cuda(hx):
         mean, fvar = predict.posterior_predict_slots(
             hx[None], z[None], log_lengthscale[None], log_variance.reshape(1),
             w[None], u[None], c[None],
@@ -78,7 +80,7 @@ def posterior_predict_slots_stacked(
     """Every cell's model on its own S blocks: hx (P, S, Q, d) against
     P-stacked factors -> (P, S, Q) pairs, one kernel launch on CUDA."""
     require_rbf(cov_fn)
-    if _on_cuda(hx):
+    if on_cuda(hx):
         return predict.posterior_predict_slots(hx, z, log_lengthscale, log_variance, w, u, c)
     return ref.posterior_predict_slots_stacked(hx, z, log_lengthscale, log_variance, w, u, c)
 
@@ -97,7 +99,7 @@ def rbf_cross_cov(x, z, log_lengthscale, log_variance):
     one launch on CUDA. Not differentiable on CUDA (the Pallas kernel has
     no VJP either)."""
     single = _single(x)
-    if not _on_cuda(x):
+    if not on_cuda(x):
         return ref.rbf_cross_cov(x, z, log_lengthscale, log_variance)
     if single:
         return rbf_kernel.rbf_cross_cov(
@@ -130,7 +132,7 @@ class SVGPProjection(torch.autograd.Function):
     def forward(ctx, x, z, log_lengthscale, log_variance, lmm):
         ctx.save_for_backward(x, z, log_lengthscale, log_variance, lmm)
         w = lower_inverse(lmm)
-        if _on_cuda(x):
+        if on_cuda(x):
             return svgp_proj.svgp_projection(x, z, log_lengthscale, log_variance, w.contiguous())
         return ref.svgp_projection(x, z, log_lengthscale, log_variance, w)
 
@@ -158,3 +160,12 @@ def svgp_projection(x, z, log_lengthscale, log_variance, lmm):
         )
         return tuple(o[0] for o in outs)
     return SVGPProjection.apply(x, z, log_lengthscale, log_variance, lmm)
+
+
+def minibatch_draws(dist, mask, batch: int, seed: int, step) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gather step's draws: dist a ``sampler.SlotDistribution``, mask
+    (P, n_max) -> (kprime (P,), idx (P, B)); one launch on CUDA, on the CPU
+    the kernel's plain twin ``ref.minibatch_draws`` (the same bits)."""
+    if on_cuda(mask):
+        return draws.minibatch_draws(dist.probs, dist.neighbor_tbl, mask, batch, seed, step)
+    return ref.minibatch_draws(StepDraws(seed, step, mask.device), dist, mask, batch)

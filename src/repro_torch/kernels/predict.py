@@ -26,19 +26,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 
 MAX_M = 2048  # the wide body's limit: a block's knm tile in shared memory
 MAX_GRID_YZ = 65535
 
-# kernel launches per entry; ``reset_launches`` zeroes them (chip_smoke.py
-# reads them around a run of the main path to show it ran the kernels)
-LAUNCHES = {"posterior_predict": 0, "posterior_predict_slots": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+LAUNCHES = launches.counter({"posterior_predict": 0, "posterior_predict_slots": 0})
 
 
 def _launch(hx, z, log_l, log_var, w, u, c) -> tuple[torch.Tensor, torch.Tensor]:

@@ -16,17 +16,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 from repro_torch.kernels.svgp_proj import check_problem
 
 MAX_M = 2**31 - 1  # no m x m factor is staged: m is bounded by the C int only
 
-LAUNCHES = {"rbf_cross_cov": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+LAUNCHES = launches.counter({"rbf_cross_cov": 0})
 
 
 def rbf_cross_cov(x, z, log_lengthscale, log_variance):

@@ -1,11 +1,11 @@
 """Plain PyTorch versions of the kernels (the allclose targets).
 
 Port of ``repro.kernels.ref``, in the exact input convention of the CUDA
-kernels in ``csrc/``: the CPU lanes run these, and ``chip_smoke.py`` holds
-each kernel to them on the card. Leading batch axes broadcast (the JAX
-package's ``vmap`` written out), which is all the slot-stacked and
-cell-stacked variants below are: with x (P, B, d) against P-stacked
-z (P, m, d), log_lengthscale (P, d), log_variance (P,) and w (P, m, m),
+kernels in ``csrc/``: the CPU lanes run these (``kernels/ops.py``), and the
+tests and ``chip_smoke.py`` hold each kernel to them on the card. Leading
+batch axes broadcast (the JAX package's ``vmap`` written out), which is all
+the slot-stacked and cell-stacked variants below are: with x (P, B, d)
+against P-stacked z (P, m, d), log_lengthscale (P, d), log_variance (P,) and w (P, m, m),
 ``rbf_cross_cov`` and ``svgp_projection`` compute what ONE launch of the
 cell-axis kernel computes for every cell.
 """
@@ -143,9 +143,9 @@ def posterior_predict_slots_masked(hx, qmask, z, log_lengthscale, log_variance, 
 
 def minibatch_draws(draws, dist, mask: torch.Tensor,
                     batch: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of ``csrc/draws.cu``: the gather step's draws as
-    ``core/sampler.py`` composes them (``sample_slots``, then the masked
-    uniform scores of ``sample_minibatch_indices`` over the source rows),
+    """The plain version of ``csrc/draws.cu``, and the gather step's draws
+    on the CPU (``ops.minibatch_draws``): ``sample_slots``, then the masked
+    uniform scores of ``sample_minibatch_indices`` over the source rows,
     each row's batch ranked by a stable descending sort in place of
     ``torch.topk``: the higher score first, equal scores the lower index
     first. ``draws`` a ``sampler.StepDraws``, ``dist`` a

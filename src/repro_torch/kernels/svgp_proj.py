@@ -24,17 +24,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 from repro_torch.kernels.predict import MAX_GRID_YZ, MAX_M
 
-# kernel launches; ``reset_launches`` zeroes it (chip_smoke.py reads it
-# around a fit to show that every training step ran the kernel once)
-LAUNCHES = {"svgp_projection": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+LAUNCHES = launches.counter({"svgp_projection": 0})
 
 
 def check_problem(

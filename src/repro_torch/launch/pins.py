@@ -180,7 +180,7 @@ PINS = {
     "psvgp.gather_4x4": {
         "peak": 119792,
         "sites": {
-            "repro_torch/core/psvgp.py:train_step_gather": ["all-gather"],
+            "repro_torch/kernels/ref.py:minibatch_draws": ["all-gather"],
             "repro_torch/core/sampler.py:gather_minibatch": ["all-gather"],
             "repro_torch/launch/dryrun.py:psvgp_gather_trace": ["all-reduce"],
         },

@@ -17,7 +17,7 @@ reads nothing back from the device, and the two give the same bits. The
 state is a pytree shaped like the params, so it carries the P cell axis
 with them. On CUDA :func:`adam_update` is ONE launch of the Adam kernel
 (``kernels/adam.py``) over every leaf, bitwise the plain formula
-(:func:`plain_adam_update`), which every other device runs.
+(:func:`plain_adam_update`), which the CPU runs (``kernels.ops.on_cuda``).
 :func:`adamw_update` adds JAX's decoupled decay on every leaf, and
 :func:`clip_by_global_norm` scales by a device scalar (no host sync);
 :func:`adamw_update_` and :func:`clip_by_global_norm_` are the two in
@@ -32,6 +32,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.kernels import adam as adam_kernel
+from repro_torch.kernels import ops
 
 PyTree = Any
 
@@ -89,10 +90,10 @@ def adam_update(
     as they are and the result is new tensors.
 
     A CUDA tree is ONE launch of the kernel (``kernels/adam.py``), bitwise
-    the plain formula; any other tree runs the plain formula
-    (:func:`plain_adam_update`). The tensors' device decides, as in
-    ``kernels/ops.py``."""
-    if tree_leaves(params)[0].device.type != "cuda":
+    the plain formula; a CPU tree runs the plain formula
+    (:func:`plain_adam_update`); any other device raises. The tensors'
+    device decides, by ``kernels.ops.on_cuda``."""
+    if not ops.on_cuda(tree_leaves(params)[0]):
         return plain_adam_update(params, grads, state, lr, b1, b2, eps, out=out)
     new = out if out is not None else _uninitialized_result(params, state)
     step_out = new[1].step

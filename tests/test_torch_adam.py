@@ -4,7 +4,9 @@
 On the CPU: the plain formula with a destination writes the bits it
 returns without one, in place too, and leaves the inputs as they were
 without one; the captured step on the CPU writes its own buffers; the
-kernel's wrapper refuses what it does not take. On the card
+kernel's wrapper refuses what it does not take, and ``adam_update`` a
+device that is neither CUDA nor the CPU; Adam's counter is in the launch
+registry. On the card
 (``cuda``-marked, skipped without a GPU): the kernel bitwise the plain
 formula at PSVGP's leaf shapes (P in {1, 400, 6,400}, m in {5, 20}, d = 2)
 at steps 1, 2 and 2,500, host and device counters, out of place and in
@@ -136,6 +138,7 @@ def test_captured_step_on_the_cpu_writes_its_buffers_in_place():
     captured = psvgp.CapturedStep(static, psvgp.device_counters(state, "cpu"), data)
     ptrs = [t.data_ptr() for t in tree_leaves(captured.buffers)]
     captured.replay(2)
+    assert captured.captured == {}  # the CPU launches no kernel
     assert [t.data_ptr() for t in tree_leaves(captured.buffers)] == ptrs
     assert int(captured.buffers.step) == int(captured.buffers.opt.step) == 2
     got = captured.state()
@@ -153,20 +156,27 @@ def test_captured_step_on_the_cpu_writes_its_buffers_in_place():
 
 
 def test_launch_counts_come_back_from_a_capture_and_count_its_replays():
-    """``kernels/launches.py``, as ``CapturedStep`` runs it on every
-    wrapper's count: the calls made during a capture are taken back out
-    and become what one replay launches."""
-    counts = {"a": 3, "b": 0}
-    before = dict(counts)
-    counts["a"] += 1  # the wrappers' calls while the graph was captured
-    counts["b"] += 2
-    one = launches.captured_launches(counts, before)
-    assert one == {"a": 1, "b": 2} and counts == before
-    launches.count_replays(counts, one, 10)
-    assert counts == {"a": 13, "b": 20}
-    adam_kernel.LAUNCHES["adam_update"] += 5
-    adam_kernel.reset_launches()
+    """``kernels/launches.py``, as ``CapturedStep`` runs it on Adam's
+    counter: the launch made during a capture is taken back out and
+    becomes what one replay launches; ``launches.reset`` zeroes it."""
+    launches.reset()
+    adam_kernel.LAUNCHES["adam_update"] += 3
+    before = launches.counts()
+    adam_kernel.LAUNCHES["adam_update"] += 1  # the wrapper's call while the graph was captured
+    one = launches.captured_launches(before)
+    assert one == {"adam_update": 1} and adam_kernel.LAUNCHES == {"adam_update": 3}
+    launches.count_replays(one, 10)
+    assert adam_kernel.LAUNCHES == {"adam_update": 13}
+    launches.reset()
     assert adam_kernel.LAUNCHES == {"adam_update": 0}
+
+
+def test_adam_update_refuses_a_device_with_no_lane():
+    """``kernels.ops.on_cuda`` decides, as for the other kernels: a meta
+    tree is neither the kernel's nor the plain formula's."""
+    params, grads, state = _state(2, 3, 2, 0, device="meta")
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        adam_update(params, grads, state, lr=LR)
 
 
 def test_kernel_wrapper_refuses_what_it_does_not_take():
@@ -287,9 +297,7 @@ def test_cuda_replays_launch_adam_once_and_copy_no_state(cuda_device):
     static, state, data = _problem(cuda_device)
     warm = psvgp.fit(static, state, data, psvgp.WARMUP_STEPS, use_scan=True)
     captured = psvgp.CapturedStep(static, psvgp.device_counters(warm, cuda_device), data)
-    assert captured.captured == [{"svgp_projection": 1}, {"adam_update": 1},
-                                 {"minibatch_draws": 1}]
-    assert captured.launches == {"svgp_projection": 1}
+    assert captured.captured == {"svgp_projection": 1, "adam_update": 1, "minibatch_draws": 1}
     torch.cuda.synchronize()
     before = adam_kernel.LAUNCHES["adam_update"]
     torch.cuda.set_sync_debug_mode("warn")  # CUDA warns at every host synchronization

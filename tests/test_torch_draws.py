@@ -2,14 +2,17 @@
 ``csrc/draws.cu``).
 
 On the CPU: the kernel's plain version (``ref.minibatch_draws``, the
-sampler's composition with a stable descending sort) against the lane's
-``torch.topk`` draws (``sample_slots`` and ``sample_minibatch_indices``):
+sampler's composition with a stable descending sort) against the
+sampler's ``torch.topk`` draws (``sample_slots`` and
+``sample_minibatch_indices``, the ranking of the ppermute and SPMD steps):
 the same sources, the same mini-batches wherever no two valid scores tie
 among a row's top B + 1, the same valid rows wherever no tie straddles the
 batch's edge, and its own tie rule (the higher score first, then the lower
 index), at the benchmark's (P, n_max) with short and empty cells and with
-constructed ties; the wrapper's refusals and its counter in
-``psvgp.COUNTED``. On the card (``cuda``-marked, skipped without a GPU):
+constructed ties; the CPU gather step drawing the twin's bits, ties
+included (``ops.minibatch_draws``); the refusals of the wrapper and of
+``ops.minibatch_draws``, and the wrapper's counter in the launch registry
+(``kernels/launches.py``). On the card (``cuda``-marked, skipped without a GPU):
 the kernel bitwise its plain version over 64 consecutive steps at both
 shapes and past the fast body's row limit, and a captured launch drawing
 its replay's step. No JAX here: the draws are the port's own.
@@ -20,11 +23,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import psvgp, sampler
+from repro_torch.core import partition, psvgp, sampler, svgp
 from repro_torch.core.neighbors import neighbor_table
 from repro_torch.core.partition import PartitionGrid
+from repro_torch.data.spatial import e3sm_like_field
 from repro_torch.kernels import draws as draws_kernel
-from repro_torch.kernels import ref
+from repro_torch.kernels import launches, ops, ref
+from repro_torch.optim import tree_leaves
 
 SEED = 2**31 + 12345  # a seed past 32 bits, as the benchmark draws them
 B = 32
@@ -62,8 +67,8 @@ def _cells(g: int, n_max: int, seed: int = 0, delta: float = 0.125, device="cpu"
 
 
 def _lane(draws, dist, mask, batch):
-    """The gather lane's plain draws, as ``psvgp.train_step_gather`` runs
-    them on the CPU."""
+    """The sampler's ``torch.topk`` composition of the same draws (the
+    ranking the ppermute and SPMD steps use)."""
     kprime, _slot = sampler.sample_slots(draws, dist)
     idx, _ = sampler.sample_minibatch_indices(draws, mask[kprime], batch)
     return kprime, idx
@@ -171,11 +176,66 @@ def test_wrapper_refuses_what_it_does_not_take():
     assert draws_kernel.LAUNCHES == {"minibatch_draws": 0}
 
 
+def test_ops_minibatch_draws_refuses_a_device_with_no_lane():
+    dist, _x, _y, mask = _cells(3, 40)
+    meta = sampler.SlotDistribution(*(t.to("meta") for t in dist))
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        ops.minibatch_draws(meta, mask.to("meta"), B, SEED, 0)
+
+
 def test_the_captured_step_counts_the_draws_kernel():
-    assert draws_kernel.LAUNCHES in psvgp.COUNTED
+    """The wrapper's counter is the registry's ``minibatch_draws`` entry,
+    which ``psvgp.CapturedStep`` counts and ``launches.reset`` zeroes."""
+    launches.reset()
     draws_kernel.LAUNCHES["minibatch_draws"] += 3
-    draws_kernel.reset_launches()
+    assert launches.counts()["minibatch_draws"] == 3
+    launches.reset()
     assert draws_kernel.LAUNCHES == {"minibatch_draws": 0}
+
+
+@pytest.mark.parametrize("counter", ["int", "tensor"])
+def test_cpu_gather_step_draws_the_plain_twin_ties_included(monkeypatch, counter):
+    """The CPU gather step's own draws are ``ref.minibatch_draws``'s bit
+    for bit, where the uniforms are cut to quarters so that every row's
+    top B holds ties, and its new state is the step's with the twin's
+    draws injected."""
+    ds = e3sm_like_field(n=400, seed=0)
+    data = partition.partition_data(ds.x, ds.y, partition.make_grid(ds.x, 3, 3), device="cpu")
+    cfg = psvgp.PSVGPConfig(svgp=svgp.SVGPConfig(num_inducing=4, input_dim=2), delta=0.25,
+                            batch_size=8, learning_rate=0.05, seed=0)
+    static, state = psvgp.build(cfg, data), psvgp.init(0, cfg, data)
+    step = 5
+    state = state._replace(step=step if counter == "int" else torch.tensor(step))
+    uniform = sampler.StepDraws.uniform
+
+    def quarters(self, shape, offset=0):
+        return torch.floor(4 * uniform(self, shape, offset)) / 4
+
+    monkeypatch.setattr(sampler.StepDraws, "uniform", quarters)
+    seen = []
+    gather = psvgp.gather_minibatch
+
+    def recorder(x, y, mask, kprime, idx):
+        seen.append((kprime, idx))
+        return gather(x, y, mask, kprime, idx)
+
+    monkeypatch.setattr(psvgp, "gather_minibatch", recorder)
+    new, _loss = psvgp.train_step_gather(state, SEED, data.x, data.y, data.mask, static.dist,
+                                         cfg, static.cov_fn)
+    want = ref.minibatch_draws(sampler.StepDraws(SEED, step, "cpu"), static.dist, data.mask,
+                               cfg.batch_size)
+    (got,) = seen
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ranked = torch.sort(_scores(SEED, step, static.dist, data.mask, got[0]), dim=1,
+                        descending=True).values[:, :cfg.batch_size]
+    tie = (ranked[:, 1:] == ranked[:, :-1]) & (ranked[:, 1:] > -0.5e9)
+    assert tie.any(1).all()  # a tie inside every row's top B
+    injected, _ = psvgp.train_step_gather(state, SEED, data.x, data.y, data.mask, static.dist,
+                                          cfg, static.cov_fn, draws=want)
+    assert int(new.step) == int(injected.step) == step + 1
+    for a, b in zip(*(tree_leaves((s.params, s.opt.mu, s.opt.nu)) for s in (new, injected)),
+                    strict=True):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -311,7 +311,7 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_frontdoor_golden_on_the_fused_lane(cuda_device, fitted):
-    from repro_torch.kernels import predict
+    from repro_torch.kernels import launches, predict
 
     server = api.Server(fitted, api.ServeConfig(mode="sharded", pipeline="pipelined"),
                         device=cuda_device)
@@ -328,7 +328,7 @@ def test_cuda_frontdoor_golden_on_the_fused_lane(cuda_device, fitted):
             got = await asyncio.gather(*(client(fd, i) for i in range(len(reqs))))
         return got, fd.report()
 
-    predict.reset_launches()
+    launches.reset()
     got, rep = asyncio.run(main())
     assert predict.LAUNCHES["posterior_predict_slots"] == rep["batches"]["count"]
     _assert_bitwise(got, [server.submit(q) for q in reqs], "cuda")

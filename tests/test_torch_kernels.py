@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
-from repro_torch.kernels import build, ops, predict, ref
+from repro_torch.kernels import build, launches, ops, predict, ref
 
 
 def _factors(rng, lead: tuple, m: int, d: int) -> list[np.ndarray]:
@@ -187,7 +187,7 @@ def test_cpu_tensors_dispatch_to_the_plain_versions_without_launching():
     x = torch.as_tensor(rng.uniform(0, 2, (9, 2)).astype(np.float32))
     hx = torch.as_tensor(rng.uniform(0, 2, (4, 9, 2)).astype(np.float32))
     hxp = torch.as_tensor(rng.uniform(0, 2, (3, 4, 9, 2)).astype(np.float32))
-    predict.reset_launches()
+    launches.reset()
     for got, want in (
         (ops.posterior_predict(x, *f), ref.posterior_predict(x, *f)),
         (ops.posterior_predict_slots(hx, *f), ref.posterior_predict_slots(hx, *f)),
@@ -216,7 +216,7 @@ def test_wrappers_take_cuda_tensors_only_and_count_nothing_on_refusal():
     rng = np.random.default_rng(4)
     f = _t(_factors(rng, (2,), 5, 2))
     hx = torch.zeros(2, 9, 8, 2)
-    predict.reset_launches()
+    launches.reset()
     with pytest.raises(ValueError, match="CUDA tensors"):
         predict.posterior_predict_slots(hx, *f)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -238,7 +238,7 @@ def test_wrappers_refuse_m_past_the_wide_limit_with_the_limit(m):
     z = torch.zeros(P, m, d)
     log_l, log_v = torch.zeros(P, d), torch.zeros(P)
     sq, c = torch.zeros(P, m, m), torch.zeros(P, m)
-    predict.reset_launches()
+    launches.reset()
     with pytest.raises(ValueError, match=f"1 <= m <= {predict.MAX_M} inducing points"):
         predict.posterior_predict(x, z, log_l, log_v, sq, sq, c)
     with pytest.raises(ValueError, match=f"1 <= m <= {predict.MAX_M} inducing points"):
@@ -312,7 +312,7 @@ def test_cuda_slots_kernel_matches_plain(cuda_device, P, S, Q, m, d):
     rng = np.random.default_rng(P + Q)
     f = _t(_factors(rng, (P,), m, d), cuda_device)
     hx = torch.as_tensor(rng.uniform(0, 2, (P, S, Q, d)).astype(np.float32), device=cuda_device)
-    predict.reset_launches()
+    launches.reset()
     got = predict.posterior_predict_slots(hx, *f)
     assert predict.LAUNCHES["posterior_predict_slots"] == 1
     want = ref.posterior_predict_slots_stacked(hx, *f)
@@ -329,7 +329,7 @@ def test_cuda_single_block_kernel_matches_plain(cuda_device, P, Q, m, d):
     rng = np.random.default_rng(Q + m)
     f = _t(_factors(rng, (P,), m, d), cuda_device)
     x = torch.as_tensor(rng.uniform(0, 2, (P, Q, d)).astype(np.float32), device=cuda_device)
-    predict.reset_launches()
+    launches.reset()
     got = predict.posterior_predict(x, *f)
     assert predict.LAUNCHES["posterior_predict"] == 1
     want = ref.posterior_predict(x, *f)
@@ -354,7 +354,7 @@ def test_cuda_pallas_lane_is_one_launch_and_bitwise_the_per_cell_launches(cuda_d
         log_beta=torch.full((P,), 3.0, device=cuda_device),
     )
     hx = torch.as_tensor(rng.uniform(0, 2, (P, S, Q, d)).astype(np.float32), device=cuda_device)
-    predict.reset_launches()
+    launches.reset()
     got = posterior.predict_cached_slots_stacked(cache, rbf, hx, backend="pallas")
     assert predict.LAUNCHES == {"posterior_predict": 1, "posterior_predict_slots": 0}
     per_cell = [posterior.predict_cached_slots(posterior.take_cache(cache, p), rbf, hx[p],
@@ -419,7 +419,7 @@ def test_cuda_wide_prediction_tile_edges_match_plain(cuda_device, i, m):
     rng = np.random.default_rng(m + Q)
     f = _t(_factors(rng, (P,), m, d), cuda_device)
     hx = torch.as_tensor(rng.uniform(0, 2, (P, 1, Q, d)).astype(np.float32), device=cuda_device)
-    predict.reset_launches()
+    launches.reset()
     got = predict.posterior_predict_slots(hx, *f)
     assert predict.LAUNCHES["posterior_predict_slots"] == 1
     want = ref.posterior_predict_slots_stacked(hx, *f)

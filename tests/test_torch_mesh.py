@@ -85,7 +85,7 @@ def _rank_serve(device, artifact, other_artifact):
     import torch.distributed as dist
 
     from repro_torch import api
-    from repro_torch.kernels import predict
+    from repro_torch.kernels import launches, predict
 
     fitted = api.FittedPSVGP.load(artifact, device=device)
     batches = _batches(fitted.grid)
@@ -95,7 +95,7 @@ def _rank_serve(device, artifact, other_artifact):
                                                     router=router, backend=backend),
                             group=dist.group.WORLD)
         res = []
-        predict.reset_launches()
+        launches.reset()
         server.stream(batches, on_result=lambda i, r, res=res: res.append(r))
         out["configs"][(router, pipeline, backend)] = {
             "results": res,

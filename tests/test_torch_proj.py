@@ -18,7 +18,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import ops, rbf, ref, svgp_proj
+from repro_torch.kernels import launches, ops, rbf, ref, svgp_proj
 
 
 @pytest.fixture(autouse=True)
@@ -155,8 +155,7 @@ def test_one_training_step_at_m_80_matches_jax_by_injection():
 def test_rbf_cross_cov_dispatch_matches_jax_and_cpu_launches_nothing():
     rng = np.random.default_rng(3)
     x, z, log_l, log_v, lmm = _problem(rng, (2,), 9, 4, 2)
-    svgp_proj.reset_launches()
-    rbf.reset_launches()
+    launches.reset()
     got = ops.rbf_cross_cov(*_t([x, z, log_l, log_v]))
     one = ops.rbf_cross_cov(*_t([x[0], z[0], log_l[0], log_v[0]]))
     for p in range(2):
@@ -173,8 +172,7 @@ def test_new_wrappers_take_cuda_tensors_only_and_count_nothing_on_refusal():
     rng = np.random.default_rng(4)
     x, z, log_l, log_v, lmm = _t(_problem(rng, (2,), 8, 5, 2))
     w = torch.linalg.inv(lmm)
-    svgp_proj.reset_launches()
-    rbf.reset_launches()
+    launches.reset()
     with pytest.raises(ValueError, match="CUDA tensors"):
         svgp_proj.svgp_projection(x, z, log_l, log_v, w)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -189,7 +187,7 @@ def test_function_hands_the_kernel_a_lower_triangular_w(monkeypatch, m):
     """The kernel's precondition (its wide body skips W's tiles above the
     diagonal): the Function's forward hands it W = Lmm^{-1} with every
     entry above the diagonal exactly zero, on either side of the wide
-    body's m = 17. The CUDA dispatch is rehearsed here: ``_on_cuda``
+    body's m = 17. The CUDA dispatch is rehearsed here: ``on_cuda``
     forced, the wrapper swapped for a recorder of its W that answers with
     the plain version."""
     rng = np.random.default_rng(m)
@@ -200,7 +198,7 @@ def test_function_hands_the_kernel_a_lower_triangular_w(monkeypatch, m):
         seen.append(w)
         return ref.svgp_projection(x, z, log_l, log_v, w)
 
-    monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(ops, "on_cuda", lambda x: True)
     monkeypatch.setattr(svgp_proj, "svgp_projection", recorder)
     ops.svgp_projection(*args)
     (w,) = seen
@@ -254,7 +252,7 @@ def test_cuda_projection_and_rbf_kernels_match_plain(cuda_device, P, B, m, d):
     rng = np.random.default_rng(P + B + m)
     x, z, log_l, log_v, lmm = _problem(rng, (P,), B, m, d)
     args = _t([x, z, log_l, log_v, _lower_inverse(lmm)], device=cuda_device)
-    svgp_proj.reset_launches()
+    launches.reset()
     got = svgp_proj.svgp_projection(*args)
     assert svgp_proj.LAUNCHES["svgp_projection"] == 1
     _assert_projection_agrees([g.cpu() for g in got],
@@ -269,7 +267,7 @@ def test_cuda_function_gradient_matches_plain_autograd_with_one_launch(cuda_devi
     args = _t(_problem(rng, (400,), 32, 5, 2), device=cuda_device)
     cot = [torch.randn(s, device=cuda_device) for s in ((400, 32, 5), (400, 32, 5), (400, 32))]
     leaves = [a.clone().requires_grad_(True) for a in args]
-    svgp_proj.reset_launches()
+    launches.reset()
     got = torch.autograd.grad(ops.svgp_projection(*leaves), leaves, cot)
     assert svgp_proj.LAUNCHES["svgp_projection"] == 1  # the backward launches none
     plain = [a.clone().requires_grad_(True) for a in args]
@@ -287,7 +285,7 @@ def test_cuda_function_gradient_at_m_128_matches_plain_autograd(cuda_device):
     args = _t(_problem(rng, (6,), 40, 128, 2), device=cuda_device)
     cot = [torch.randn(s, device=cuda_device) for s in ((6, 40, 128), (6, 40, 128), (6, 40))]
     leaves = [a.clone().requires_grad_(True) for a in args]
-    svgp_proj.reset_launches()
+    launches.reset()
     got = torch.autograd.grad(ops.svgp_projection(*leaves), leaves, cot)
     assert svgp_proj.LAUNCHES["svgp_projection"] == 1
     plain = [a.clone().requires_grad_(True) for a in args]
@@ -340,7 +338,7 @@ def test_cuda_wide_projection_tile_edges_match_plain(cuda_device, i, m):
     rng = np.random.default_rng(m + B)
     x, z, log_l, log_v, lmm = _problem(rng, (P,), B, m, d)
     args = _t([x, z, log_l, log_v, _lower_inverse(lmm)], device=cuda_device)
-    svgp_proj.reset_launches()
+    launches.reset()
     got = svgp_proj.svgp_projection(*args)
     assert svgp_proj.LAUNCHES["svgp_projection"] == 1
     want = ref.svgp_projection(*args)

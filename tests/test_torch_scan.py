@@ -22,7 +22,7 @@ import torch
 from repro_torch.checkpoint.checkpoint import flatten
 from repro_torch.core import partition, psvgp, svgp
 from repro_torch.data.spatial import e3sm_like_field
-from repro_torch.kernels import svgp_proj
+from repro_torch.kernels import launches, svgp_proj
 
 
 @pytest.fixture(autouse=True)
@@ -119,12 +119,12 @@ def cuda_device():
 def test_cuda_graph_lane_is_bitwise_the_eager_lane(cuda_device, comm, use_pallas):
     static, state, data = _problem(comm, use_pallas, cuda_device, grid=4, n=2000, m=5,
                                    batch=16)
-    svgp_proj.reset_launches()
+    launches.reset()
     graph = psvgp.fit(static, state, data, 40, use_scan=True)
-    launches = svgp_proj.LAUNCHES["svgp_projection"]
+    n_proj = svgp_proj.LAUNCHES["svgp_projection"]
     eager = psvgp.fit(static, state, data, 40)
     assert _bitwise(graph, eager) == []
-    assert launches == (40 if use_pallas else 0)
+    assert n_proj == (40 if use_pallas else 0)
     resumed = psvgp.fit(static, psvgp.fit(static, state, data, 17, use_scan=True), data, 23,
                         use_scan=True)
     assert _bitwise(resumed, graph) == []
@@ -135,7 +135,7 @@ def test_cuda_replays_launch_the_projection_once_and_never_synchronize(cuda_devi
     static, state, data = _problem("gather", True, cuda_device, grid=4, n=2000, m=5, batch=16)
     state = psvgp.fit(static, state, data, psvgp.WARMUP_STEPS, use_scan=True)
     captured = psvgp.CapturedStep(static, psvgp.device_counters(state, cuda_device), data)
-    assert captured.launches == {"svgp_projection": 1}
+    assert captured.captured == {"svgp_projection": 1, "adam_update": 1, "minibatch_draws": 1}
     torch.cuda.synchronize()
     before = svgp_proj.LAUNCHES["svgp_projection"]
     torch.cuda.set_sync_debug_mode("warn")  # CUDA warns at every host synchronization

@@ -97,7 +97,7 @@ def _rank_train(mesh, side: int, device: str) -> dict:
 
     from repro_torch.core import psvgp_spmd as spmd
     from repro_torch.core.partition import PartitionGrid
-    from repro_torch.kernels import svgp_proj
+    from repro_torch.kernels import launches, svgp_proj
     from repro_torch.launch import serve_sharded as ss
 
     grid, data, static, state = _problem(side, device)
@@ -106,7 +106,7 @@ def _rank_train(mesh, side: int, device: str) -> dict:
     x, y, mask, probs, n_eff = spmd.shard_data(
         (data.x, data.y, data.mask, static.dist.probs, static.dist.n_eff), mesh)
     state = spmd.shard_state(state, mesh)
-    svgp_proj.reset_launches()
+    launches.reset()
     mesh.reset_stats()
     batches, losses = [], []
     for t in range(STEPS):

@@ -22,7 +22,7 @@ from test_torch_scan import _bitwise, _problem
 
 from repro_torch import trace
 from repro_torch.core import psvgp
-from repro_torch.kernels import svgp_proj
+from repro_torch.kernels import launches, svgp_proj
 
 ITERS = 8
 MARGIN_NS = 5_000_000  # a span against its profiler event, mapped: room for preemptions
@@ -190,17 +190,18 @@ def test_cuda_traced_capture_launches_the_same_and_is_bitwise(cuda_device):
     runs = {}
     for on in (False, True):
         trace.set_enabled(on)
-        svgp_proj.reset_launches()
+        launches.reset()
         final = psvgp.fit(static, state, data, 40, use_scan=True)
-        launches = svgp_proj.LAUNCHES["svgp_projection"]
+        n_proj = svgp_proj.LAUNCHES["svgp_projection"]
         warm = psvgp.fit(static, state, data, psvgp.WARMUP_STEPS, use_scan=True)
         captured = psvgp.CapturedStep(static, psvgp.device_counters(warm, cuda_device), data)
         torch.cuda.synchronize()
         trace.set_enabled(False)
-        runs[on] = (final, launches, dict(captured.launches), _replay_ops(captured))
+        runs[on] = (final, n_proj, dict(captured.captured), _replay_ops(captured))
     assert _bitwise(runs[True][0], runs[False][0]) == []
     assert runs[True][1:] == runs[False][1:]
-    assert runs[True][1] == 40 and runs[True][2] == {"svgp_projection": 1}
+    assert runs[True][1] == 40 and runs[True][2] == {"svgp_projection": 1, "adam_update": 1,
+                                                     "minibatch_draws": 1}
     spans = [s for s in trace.drain()["spans"] if s["name"] != "psvgp.init"]
     names = [s["name"] for s in spans]
     assert names[:6] == ["psvgp.warm_up", "psvgp.capture.step", "psvgp.capture",

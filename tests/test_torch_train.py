@@ -52,7 +52,7 @@ from repro_torch.core import metrics, neighbors, partition, posterior, psvgp, sa
 from repro_torch.core.blend import blend_error_scales
 from repro_torch.gp import covariances as tcov
 from repro_torch.gp import likelihoods as tlik
-from repro_torch.kernels import svgp_proj
+from repro_torch.kernels import launches, svgp_proj
 from repro_torch.kernels.ref import tolerance_ratio
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -541,7 +541,7 @@ def cuda_device():
 def test_cuda_fit_launches_the_projection_kernel_once_per_step(cuda_device):
     ds = e3sm_like_field(n=2000, seed=0)
     cfg = api.FitConfig(grid=4, m=5, train_iters=40, batch_size=16)
-    svgp_proj.reset_launches()
+    launches.reset()
     fitted = api.fit(cfg, ds)
     assert svgp_proj.LAUNCHES["svgp_projection"] == 40
     assert fitted.device.type == "cuda"
